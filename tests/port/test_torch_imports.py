@@ -1,0 +1,89 @@
+"""The port stands alone: no module of zksc_tpu_torch, nor chip_smoke.py,
+imports jax or the JAX package; its entry points refuse to run without CUDA
+unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+PKG = os.path.join(ROOT, "zksc_tpu_torch")
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "zksc_tpu")
+
+
+def test_no_jax_imports_in_source():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [(path, n) for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax():
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {ROOT!r})
+import zksc_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(zksc_tpu_torch.__path__,
+                                              "zksc_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "zksc_tpu"))
+assert not bad, bad
+print(len(mods))
+"""
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 25
+
+
+def test_chip_smoke_fails_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT, env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_refuse_without_cuda(monkeypatch):
+    from zksc_tpu_torch import api
+    from zksc_tpu_torch.groth16 import ProverContext
+    from zksc_tpu_torch.operators import Groth16Operator
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proof("chacha20", bytes(32), bytes(128), bytes(12))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proofs("chacha20", [])
+    env = api.ProofEnvelope("chacha20", {}, bytes(128), 128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.verify_proof(env, bytes(128), bytes(12))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Groth16Operator("chacha20")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProverContext(None, None)

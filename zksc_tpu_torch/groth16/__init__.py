@@ -1,0 +1,5 @@
+from .prove import Proof, ProverContext
+from .setup import ProvingKey, VerifyingKey
+from .verify import verify
+
+__all__ = ["Proof", "ProverContext", "ProvingKey", "VerifyingKey", "verify"]

@@ -1,0 +1,132 @@
+"""Engine operators: the Groth16 prover/verifier for one algorithm.
+
+Ported from the JAX package's ``operators.py`` for the chacha20 statement
+under the "groth16" engine. The other statements (AES, TOPRF), the STARK
+engines and the multi-device mesh are not ported yet; asking for them
+raises.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+from .api import ZKProofInput
+from .config import CONFIG
+from .device import resolve_device
+from .r1cs import check_witness, compile_circuit, generate_witness
+from .r1cs.circuits import chacha20 as chacha_circuit
+
+ARTIFACT_ROOT = os.environ.get(
+    "ZKSC_ARTIFACT_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "artifacts"))
+
+
+class CircuitSpec:
+    """Statement registry entry: circuit definition + witness assembly."""
+
+    def __init__(self, algorithm: str):
+        if algorithm != "chacha20":
+            raise ValueError(
+                f"algorithm {algorithm!r} is not ported yet (only chacha20)")
+        self.algorithm = algorithm
+        cfg = CONFIG[algorithm]
+        self.blocks = cfg.blocks_per_chunk
+        self.module = chacha_circuit
+        self.define = chacha_circuit.make_define(self.blocks)
+        self.pub_layout = chacha_circuit.public_layout(self.blocks)
+        self.priv_layout = chacha_circuit.private_layout(self.blocks)
+        self._cs = None
+
+    @property
+    def cs(self):
+        if self._cs is None:
+            self._cs = compile_circuit(self.define, self.pub_layout,
+                                       self.priv_layout)
+        return self._cs
+
+    def build_witness(self, wi: ZKProofInput) -> np.ndarray:
+        bs = CONFIG[wi.algorithm].block_size_bytes
+        ins = [[wi.ciphertext[b * bs:(b + 1) * bs] for b in range(self.blocks)]]
+        outs = [[wi.plaintext[b * bs:(b + 1) * bs] for b in range(self.blocks)]]
+        infos = [[(blk.nonce, blk.counter) for blk in wi.blocks]]
+        pub, priv = self.module.witness_inputs([wi.key], infos, ins, outs,
+                                               self.blocks)
+        w = generate_witness(self.define, self.pub_layout, self.priv_layout,
+                             pub, priv, batch=1)
+        return w[:, 0]
+
+
+class Groth16Operator:
+    """Groth16 prove/verify for one algorithm on `device` (default "cuda"),
+    with keys from the local artifact store (the circuit digest pinned)."""
+
+    def __init__(self, algorithm: str, artifact_dir: str | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.spec = CircuitSpec(algorithm)
+        self.algorithm = algorithm
+        self._dir = artifact_dir or os.path.join(ARTIFACT_ROOT, algorithm)
+        self._ctx = None
+        self._vk = None
+        self.timings: dict = {}
+
+    def _ensure_keys(self):
+        if self._ctx is not None:
+            return
+        from .groth16 import ProverContext, artifacts as art
+        if not os.path.exists(os.path.join(self._dir, "pk_meta.json")):
+            raise FileNotFoundError(
+                f"no artifacts for {self.algorithm} under {self._dir} "
+                "(the trusted setup is not ported yet)")
+        cs = self.spec.cs
+        pk, vk = art.load_keys(self._dir, expected_digest=cs.digest(),
+                               device=self.device)
+        self._ctx = ProverContext(cs, pk, device=self.device)
+        self._vk = vk
+
+    def ensure_vk(self):
+        if self._vk is None:
+            from .groth16 import artifacts as art
+            if os.path.exists(os.path.join(self._dir, "vk.json")):
+                self._vk = art.load_vk(
+                    self._dir, expected_digest=self.spec.cs.digest())
+            else:
+                self._ensure_keys()
+        return self._vk
+
+    def prove(self, wi: ZKProofInput, rng=None) -> dict:
+        return self.prove_batch([wi], rng)[0]
+
+    def prove_batch(self, wis: list, rng=None) -> list:
+        """Prove several chunks in one device pass."""
+        self._ensure_keys()
+        t0 = time.perf_counter()
+        witnesses = [self.spec.build_witness(wi) for wi in wis]
+        if os.environ.get("ZKSC_CHECK_WITNESS", "0") == "1":
+            for witness in witnesses:
+                if not check_witness(self.spec.cs, witness[:, None]):
+                    raise ValueError("witness does not satisfy the circuit "
+                                     "(wrong key or corrupted inputs?)")
+        t1 = time.perf_counter()
+        proofs = self._ctx.prove_batch(witnesses, rng)
+        self.timings = {"witness_s": t1 - t0, **self._ctx.timings}
+        return [p.to_json_dict() for p in proofs]
+
+    def verify(self, public_bits: list, proof_data: dict) -> bool:
+        from .groth16 import verify as g16_verify
+        from .groth16.prove import Proof
+        vk = self.ensure_vk()
+        try:
+            proof = Proof.from_json_dict(proof_data)
+        except (KeyError, ValueError, TypeError):
+            return False
+        return g16_verify(vk, proof, public_bits)
+
+
+def make_operator(algorithm: str, engine: str, device=None):
+    if engine == "groth16":
+        return Groth16Operator(algorithm, device=device)
+    raise ValueError(f"engine {engine!r} is not ported yet (available: groth16)")

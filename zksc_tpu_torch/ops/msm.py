@@ -1,0 +1,267 @@
+"""Pippenger multi-scalar multiplication (sort + prefix-scan buckets).
+
+The formulation of the JAX package's ``ops/msm.py``, per c-bit window w:
+
+  digit d_i = bits [w*c, (w+1)*c) of scalar_i
+  window sum S_w = sum_{j>=1} T_j    (T_j = sum of P_i with d_i >= j)
+
+Sorting a window's points by digit DESCENDING makes every T_j a prefix of
+the sorted sequence, read off an inclusive prefix sum V at the bucket
+boundaries. So per window:
+
+  1. sort point indices by digit (one stable global sort, windows and
+     proofs concatenated with segment-prefixed keys)
+  2. hierarchical prefix scan of EC adds over the sorted points: chunk-local
+     scans of _SCAN_S steps (K1, ec_kernels.chunk_scan) per level, then a
+     small Hillis-Steele top
+  3. gather V at the 2^c bucket boundaries, add the upper levels' offsets,
+     subtract the segment prefix, mask empty buckets
+  4. shrinking halving-tree reduce over the bucket axis -> S_w
+
+  MSM = sum_w 2^{c*w} * S_w      (host Horner combine, msm_to_host_affine)
+
+The prefix scan and the bucket reduce use COMPLETE additions: P == Q occurs
+structurally there (every window's segment holds the same point multiset,
+and 0/1 witnesses make whole digit runs identical); an incomplete formula
+silently zeroes them. Only the boundary corrections keep incomplete adds.
+
+Every Jacobian add here goes through ops/ec_kernels (K1 for the chunk
+scans; K2 for the Hillis-Steele top, the boundary and prefix corrections and
+the halving reduce): on a CUDA tensor that is the hand-written kernel, on a
+CPU tensor its plain PyTorch version. Unlike the JAX package there is no
+tile-multiple condition: every call takes the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..fields.limb import W as LIMB_W
+from . import ec, ec_kernels
+from .ec import JacPoint
+
+
+def _jp(fops, fn, P: JacPoint) -> JacPoint:
+    return JacPoint(fops.lane_map(fn, P.x), fops.lane_map(fn, P.y),
+                    fops.lane_map(fn, P.z))
+
+
+def scalars_to_digits(scalars_plain, c: int, n_windows: int):
+    """Non-Montgomery 16-bit limbs [L, *batch] -> digits int64
+    [n_windows, *batch], digit w = scalar bits [w*c, (w+1)*c)."""
+    assert c <= LIMB_W, "window must fit in two 16-bit limbs"
+    s = scalars_plain.to(torch.int64)
+    L = s.shape[0]
+    outs = []
+    for w in range(n_windows):
+        lo_bit = w * c
+        lo, off = lo_bit // LIMB_W, lo_bit % LIMB_W
+        d = s[lo] >> off
+        if off + c > LIMB_W and lo + 1 < L:
+            d = d | (s[lo + 1] << (LIMB_W - off))
+        outs.append(d & ((1 << c) - 1))
+    return torch.stack(outs)
+
+
+def _local_scan(fops, pts: JacPoint, S: int, inclusive: bool):
+    """Chunk-local prefix scan along lanes: view [N] as [N//S chunks, S],
+    scan within each chunk (K1). Returns (scanned [N] position-major,
+    chunk totals [N//S])."""
+    N = fops.lane_width(pts.x)
+    C = N // S
+
+    def ts(a):
+        # position-major [L, C*S] (lane = chunk*S + t) -> step-major [S, L, C]
+        return a.reshape(a.shape[0], C, S).permute(2, 0, 1).contiguous()
+
+    def fs(a):
+        # [S, L, C] -> position-major [L, C*S]
+        return a.permute(1, 2, 0).reshape(a.shape[1], C * S)
+
+    raws = ec_kernels.split_coords(fops, pts)
+    ys, carry = ec_kernels.chunk_scan(fops, [ts(a) for a in raws], S,
+                                      inclusive)
+    return (ec_kernels.join_coords(fops, [fs(y) for y in ys]),
+            ec_kernels.join_coords(fops, carry))
+
+
+def _add_wide(fops, P: JacPoint, Q: JacPoint, complete: bool) -> JacPoint:
+    """Elementwise point add (K2)."""
+    return ec_kernels.jac_add_n(fops, P, Q, complete=complete)
+
+
+def _hs_scan(fops, pts: JacPoint, exclusive: bool) -> JacPoint:
+    """Global prefix scan via Hillis-Steele (log2(N) full-width adds); used
+    for the small top level of the hierarchy (and tiny inputs outright)."""
+    N = fops.lane_width(pts.x)
+    dev = pts.x.device
+    iota = torch.arange(N, device=dev)
+    ident = ec.jac_identity_batch(fops, (N,), device=dev)
+
+    def shift(P, d):
+        rolled = _jp(fops, lambda a: torch.roll(a, d, dims=-1), P)
+        cond = iota < d
+        return JacPoint(fops.select(cond, ident.x, rolled.x),
+                        fops.select(cond, ident.y, rolled.y),
+                        fops.select(cond, ident.z, rolled.z))
+
+    cur = shift(pts, 1) if exclusive else pts
+    d = 1
+    while d < N:
+        cur = _add_wide(fops, cur, shift(cur, d), complete=True)
+        d *= 2
+    return cur
+
+
+_SCAN_S = 16          # chunk width per hierarchy level
+_HS_MAX = 8192        # switch to Hillis-Steele at/below this width
+
+
+def _window_sums(fops, points: JacPoint, digits, c: int, k: int, n: int):
+    """Per-(proof, window) bucket-method sums.
+
+    points: JacPoint [L, n] (shared table). digits: int [k, W, n].
+    Returns JacPoint [L, k*W]: lane j*W + w = S_w for proof j."""
+    dev = points.x.device
+    W = digits.shape[1]
+    two_c = 1 << c
+    segs = k * W
+    N = segs * n
+
+    # ---- keys: segment-major, digit DESCENDING within segment ----
+    f = (two_c - 1) - digits.to(torch.int64)                      # flipped
+    seg_ids = torch.arange(segs, dtype=torch.int64, device=dev).reshape(k, W, 1)
+    key = (seg_ids * two_c + f).reshape(-1)
+
+    # histogram -> inclusive counts over flipped digit: cnt_ge(j) = cum[., 2^c-1-j]
+    counts = torch.bincount(key, minlength=segs * two_c)
+    cum = torch.cumsum(counts.reshape(segs, two_c), dim=-1)      # [segs, 2^c]
+
+    # stable: ties keep index order within a segment, as lax.sort does
+    _, sidx = torch.sort(key, stable=True)
+    sidx = sidx % n                                               # point index
+    pts = _jp(fops, lambda a: a[:, sidx], points)                 # [L, N]
+
+    # ---- hierarchical prefix scan ----
+    levels = []                                                   # (scan, stride)
+    if N <= _HS_MAX or N % _SCAN_S:
+        s0 = _hs_scan(fops, pts, exclusive=False)
+    else:
+        s0, tot = _local_scan(fops, pts, _SCAN_S, inclusive=True)
+        stride = _SCAN_S
+        while fops.lane_width(tot.x) > _HS_MAX and \
+                fops.lane_width(tot.x) % _SCAN_S == 0:
+            e, tot = _local_scan(fops, tot, _SCAN_S, inclusive=False)
+            levels.append((e, stride))
+            stride *= _SCAN_S
+        levels.append((_hs_scan(fops, tot, exclusive=True), stride))
+
+    # ---- bucket boundaries (q-major lanes: lane = q*segs + s) ----
+    cnt = cum.T                                                   # [2^c, segs]
+    base = (torch.arange(segs, dtype=torch.int64, device=dev) * n)[None, :]
+    pos = torch.clamp(base + cnt - 1, 0, N - 1).reshape(-1)
+    V = _jp(fops, lambda a: a[:, pos], s0)
+    for e, st in levels:
+        lim = fops.lane_width(e.x) - 1
+        ep = torch.clamp(pos // st, 0, lim)
+        V = _add_wide(fops, V, _jp(fops, lambda a: a[:, ep], e),
+                      complete=False)
+
+    # subtract the segment prefix (all points of earlier segments): for
+    # segment s > 0 that's V_global at position s*n - 1; identity for s == 0
+    pre_pos = torch.clamp(torch.arange(segs, dtype=torch.int64, device=dev)
+                          * n - 1, 0, N - 1)
+    Pre = _jp(fops, lambda a: a[:, pre_pos], s0)
+    for e, st in levels:
+        lim = fops.lane_width(e.x) - 1
+        ep = torch.clamp(pre_pos // st, 0, lim)
+        Pre = _add_wide(fops, Pre, _jp(fops, lambda a: a[:, ep], e),
+                        complete=False)
+    first_seg = torch.arange(segs, device=dev) == 0
+    Pre = JacPoint(Pre.x, fops.neg(Pre.y),
+                   fops.select(first_seg, fops.zeros_like(Pre.z), Pre.z))
+    PreT = _jp(fops, lambda a: a.repeat(1, two_c), Pre)
+    T = _add_wide(fops, V, PreT, complete=False)
+
+    # mask: empty prefix (cnt == 0) and the digit-0 bucket (q == 2^c - 1)
+    q_flat = torch.arange(two_c, device=dev).repeat_interleave(segs)
+    valid = (cnt.reshape(-1) > 0) & (q_flat != two_c - 1)
+    ident = ec.jac_identity_batch(fops, (two_c * segs,), device=dev)
+    T = JacPoint(fops.select(valid, T.x, ident.x),
+                 fops.select(valid, T.y, ident.y),
+                 fops.select(valid, T.z, ident.z))
+
+    # ---- shrinking halving reduce over the bucket axis ----
+    half = two_c
+    while half > 1:
+        half //= 2
+        lo = _jp(fops, lambda a: a[:, : half * segs].contiguous(), T)
+        hi = _jp(fops, lambda a: a[:, half * segs: 2 * half * segs].contiguous(), T)
+        T = _add_wide(fops, lo, hi, complete=True)
+    return T                                                      # [L, segs]
+
+
+def default_window_bits(n_bits: int, n: int) -> int:
+    """Balance scan work (W * 1.3n) against bucket work (W * 2*2^c)."""
+    best, best_cost = 8, None
+    for c in range(6, 17):
+        Wn = -(-n_bits // c)
+        cost = Wn * (1.3 * n + 2.0 * (1 << c))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+class MsmPending:
+    """In-flight bucket MSM: the per-(proof, window) sums live on the
+    device; the tiny window combine happens at msm_to_host_affine time in
+    host Jacobian bigints."""
+
+    __slots__ = ("sums", "c", "Wn", "k")
+
+    def __init__(self, sums, c, Wn, k):
+        self.sums, self.c, self.Wn, self.k = sums, c, Wn, k
+
+
+def msm_pippenger_device(fops, points: JacPoint, scalars_plain, n_bits: int,
+                         c: int | None = None) -> MsmPending:
+    """Device half of the bucket MSM: returns an MsmPending whose window
+    sums stay on the device, WITHOUT synchronizing to the host, so several
+    MSMs queue back-to-back."""
+    single = scalars_plain.dim() == 2
+    sp = scalars_plain[:, None, :] if single else scalars_plain
+    k, n = int(sp.shape[1]), int(sp.shape[2])
+    if c is None:
+        c = default_window_bits(n_bits, n)
+    Wn = -(-n_bits // c)
+    digits = scalars_to_digits(sp, c, Wn)            # [W, k, n]
+    digits = digits.permute(1, 0, 2)                 # [k, W, n]
+    sums = _window_sums(fops, points, digits, c, k, n)
+    return MsmPending(sums, c, Wn, k)
+
+
+def msm_to_host_affine(fops, pending: MsmPending, k: int) -> list:
+    """Finalize an MsmPending: pull the [L, k*Wn] window sums (lane
+    j*Wn + w) and Horner-combine windows in host Jacobian coordinates."""
+    from ..curve import bn254_host as host
+
+    g2 = isinstance(fops, ec.Fp2Ops)
+    conv = ec.g2_jac_to_host_affine if g2 else ec.g1_jac_to_host_affine
+    pts = conv(fops.F, pending.sums, host.P)
+    c, Wn = pending.c, pending.Wn
+    out = []
+    for j in range(k):
+        wins = [pts[j * Wn + w] for w in range(Wn)]
+        out.append(host.combine_windows_host(wins, c, g2=g2))
+    return out
+
+
+def msm_pippenger(fops, points: JacPoint, scalars_plain, n_bits: int,
+                  c: int | None = None) -> list:
+    """MSM sum_i s_i * P_i via the windowed bucket method.
+
+    points: JacPoint [L, n] (Montgomery limb form). scalars_plain: plain
+    16-bit limbs [L, n] for one MSM or [L, k, n] for k scalar sets over the
+    shared table. Returns k host affine points (None = identity)."""
+    k = int(scalars_plain.shape[1]) if scalars_plain.dim() == 3 else 1
+    pending = msm_pippenger_device(fops, points, scalars_plain, n_bits, c)
+    return msm_to_host_affine(fops, pending, k)

@@ -1,0 +1,145 @@
+"""Radix-2 NTT over BN254 Fr for the Groth16 H-polynomial (plain PyTorch).
+
+The JAX package's ``ops/ntt.py`` pipeline, unchanged in its arithmetic:
+
+  - Decimation-in-frequency (DIF) for transforms whose *output* order may
+    stay bit-reversed, decimation-in-time (DIT) for transforms whose *input*
+    is bit-reversed: no runtime bit-reversal permutation anywhere.
+    Order-sensitive tables (coset shift powers) are precomputed in
+    bit-reversed order on the host instead.
+  - Each butterfly stage is a reshape + one batched Montgomery multiply.
+
+The Groth16 coset pipeline (see groth16/prove.py):
+  evals(natural) --DIF(w^-1, 1/n)--> coeffs(bitrev)
+  coeffs(bitrev) * shift^i(bitrev)  --DIT(w)--> coset evals(natural)
+  pointwise h = (a*b - c) * 1/Z_coset
+  coset evals --DIF(w^-1, 1/n)--> then * shift^-i(bitrev) -> h coeffs(bitrev)
+  (the H-basis MSM points are stored in bit-reversed order at setup time)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields.limb import LimbField
+
+
+def bit_reverse_perm(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+def find_2adic_root(F: LimbField, n: int) -> int:
+    """Primitive n-th root of unity in F (n a power of two)."""
+    assert n & (n - 1) == 0
+    two_adicity = 0
+    m = F.p - 1
+    while m % 2 == 0:
+        m //= 2
+        two_adicity += 1
+    assert n <= (1 << two_adicity), "domain too large for field 2-adicity"
+    for g in range(2, 100):
+        root = pow(g, (F.p - 1) >> two_adicity, F.p)
+        # root has order dividing 2^two_adicity; check it's exactly that
+        if pow(root, 1 << (two_adicity - 1), F.p) != 1:
+            w = pow(root, 1 << (two_adicity - (n.bit_length() - 1)), F.p)
+            assert pow(w, n, F.p) == 1 and pow(w, n // 2, F.p) != 1
+            return w
+    raise RuntimeError("no generator found")
+
+
+def _powers(base: int, count: int, p: int) -> list:
+    out, acc = [], 1
+    for _ in range(count):
+        out.append(acc)
+        acc = acc * base % p
+    return out
+
+
+class NTTContext:
+    """Precomputed twiddle tables + transforms for a fixed power-of-two n,
+    with every table on `device`."""
+
+    def __init__(self, F: LimbField, n: int, coset_shift: int | None = None,
+                 device=None):
+        self.F = F
+        self.n = n
+        self.device = device
+        self.w = find_2adic_root(F, n)
+        self.w_inv = pow(self.w, -1, F.p)
+        self.n_inv = pow(n, -1, F.p)
+        # per-stage twiddle tables: for span `len`, powers (w^(n/len))^j, j<len/2
+        self._tw_fwd = self._stage_tables(self.w)
+        self._tw_inv = self._stage_tables(self.w_inv)
+        self.bitrev = bit_reverse_perm(n)
+        if coset_shift is None:
+            coset_shift = 5
+        assert pow(coset_shift, n, F.p) != 1, \
+            "coset shift must lie outside the domain"
+        self.shift = coset_shift
+        br = self.bitrev
+        shift_pows = _powers(coset_shift, n, F.p)
+        shift_inv_pows = _powers(pow(coset_shift, -1, F.p), n, F.p)
+        self.shift_pows_br = F.to_device(
+            [shift_pows[int(br[i])] for i in range(n)], device=device)
+        self.shift_inv_pows_br = F.to_device(
+            [shift_inv_pows[int(br[i])] for i in range(n)], device=device)
+        # Z_H(shift * w^i) = shift^n - 1 (constant on the coset)
+        self.z_coset_int = (pow(coset_shift, n, F.p) - 1) % F.p
+        self._ninv = F.broadcast_const(self.n_inv, (1,), device=device)
+
+    def _stage_tables(self, w_root: int):
+        F, n = self.F, self.n
+        tables = {}
+        length = n
+        while length >= 2:
+            wl = pow(w_root, n // length, F.p)
+            tables[length] = F.to_device(_powers(wl, length // 2, F.p),
+                                         device=self.device)
+            length //= 2
+        return tables
+
+    def dif_inverse(self, evals):
+        """evals (natural order) -> coeffs (bit-reversed), includes 1/n
+        scale. evals: [L, n] Montgomery form."""
+        F, n = self.F, self.n
+        x = evals
+        length = n
+        while length >= 2:
+            x = x.reshape(F.L, n // length, length)
+            u = x[:, :, : length // 2]
+            v = x[:, :, length // 2:]
+            tw = self._tw_inv[length][:, None, :]
+            hi = F.mont_mul(F.sub(u, v), tw)
+            x = torch.cat([F.add(u, v), hi], dim=2).reshape(F.L, n)
+            length //= 2
+        return F.mont_mul(x, self._ninv)
+
+    def dit_forward(self, coeffs_br):
+        """coeffs (bit-reversed) -> evals (natural order)."""
+        F, n = self.F, self.n
+        x = coeffs_br
+        length = 2
+        while length <= n:
+            x = x.reshape(F.L, n // length, length)
+            u = x[:, :, : length // 2]
+            v = x[:, :, length // 2:]
+            tw = self._tw_fwd[length][:, None, :]
+            vw = F.mont_mul(v, tw)
+            x = torch.cat([F.add(u, vw), F.sub(u, vw)], dim=2).reshape(F.L, n)
+            length *= 2
+        return x
+
+    def coset_evals_from_coeffs_br(self, coeffs_br):
+        """coeffs (bitrev) -> evaluations on the coset shift*<w> (natural)."""
+        scaled = self.F.mont_mul(coeffs_br, self.shift_pows_br)
+        return self.dit_forward(scaled)
+
+    def coeffs_br_from_coset_evals(self, evals):
+        """evaluations on coset (natural) -> coeffs (bitrev)."""
+        c = self.dif_inverse(evals)
+        return self.F.mont_mul(c, self.shift_inv_pows_br)
