@@ -1,29 +1,53 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (zksc_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # all phases (one card)
-    python3 chip_smoke.py --profile  # all phases + a torch.profiler
-                                     # breakdown of one more proof
+    python3 chip_smoke.py               # all phases (one card)
+    python3 chip_smoke.py --profile     # all phases + a torch.profiler
+                                        # breakdown of one more proof
 
 Phases, each printing its elapsed seconds on a flushed line of its own:
 
   1. environment: torch / CUDA versions, the card, nvidia-smi name and
      power limit; fails without CUDA.
-  2. build: the nvcc build of the CUDA kernels (csrc/ -> build/libzksc_ec.so)
-     and the g++ build of the witness-tape library, with their seconds.
+  2. build: the nvcc builds of the CUDA kernels (csrc/ec_kernels.cu ->
+     build/libzksc_ec.so, csrc/msm_kernels.cu -> build/libzksc_msm.so, both
+     nvcc processes started together) and the g++ build of the
+     witness-tape library, with their seconds.
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive; S=16, C=2,048) and K2 jac_add_n (G1, G2 x complete,
      incomplete; N=8,192) on points of the committed chacha20 proving key
-     plus crafted identity, duplicate, re-scaled and negated lanes; the
-     kernel must equal its plain PyTorch version limb for limb.
+     plus crafted identity, duplicate, re-scaled and negated lanes; K3
+     ladder (G1, G2 x unreduced with per-lane and shared bits, reduced over
+     segments of 64 and of all lanes; N=4,096, 32 bits) with crafted zero
+     and one scalars, identity points, and equal and opposite points on
+     lanes the reduction pairs; each kernel must equal its plain PyTorch
+     version limb for limb. K3 over 254 bits on 8 lanes must equal
+     curve/bn254_host's scalar products and their sum.
   4. main path at full size: api.generate_proof("chacha20", ...) twice on
      a 128-byte chunk with the committed artifacts/chacha20 key (45,217
      wires, domain 2^16); api.verify_proof must accept it and reject a
      ciphertext with one byte flipped; both kernels' launch counters (reset
      just before the second proof) must be > 0.
-  5. kernel timing at the main path's shapes: the largest input each kernel
-     variant got during the main path is replayed through the kernel and
-     its plain version (equal limb for limb), timed with CUDA events, and
+  6. keys made on the card, at full width: the aes-128-ctr and aes-256-ctr
+     circuits compile to the digests of the committed manifests; keygen
+     for aes-128-ctr (fixed --seed) into the port's key store; load_keys;
+     one ceremony contribution (K3 over h_query and c_query), checked by
+     verify_chain and verify_query_scaling; the contributed key saved to
+     the store; api.generate_proof of an 80-byte aes-128-ctr chunk twice
+     (cold, warm); verify_proof accepts it and rejects a flipped byte. The
+     launch counters are reset just before keygen and K1, K2 and K3 must
+     all be > 0 after the proofs. Seconds per stage and peak device memory.
+  7. the ladder branch of ProverContext on the card: the x^13 toy circuit
+     (m_pad 32: host B2, K3 for G1) and a 100-power circuit (m_pad 128: K3
+     for G1 and G2), keys from the port's setup on the card; each proof
+     verifies and equals the force_pippenger proof under the same rng; K3's
+     counter, reset just before, must be > 0.
+  5. kernel timing at the paths' shapes (run last, as it replays phases 4,
+     6 and 7): the first of the largest inputs each kernel variant got in
+     each path is replayed through the kernel and its plain version (equal
+     limb for limb; for K3 over more than 128 lanes the plain version runs
+     on a sample of an unreduced input's lanes that reaches every block of
+     128), timed with CUDA events, and
      set beside its bound (IMAD count or bytes, from these inputs).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -48,6 +72,7 @@ HBM_BYTES_PER_S = 3.35e12
 # multiply-adds (a*b and m*p) + 1 for m, each 32x32->64 product two slots
 IMAD_PER_FP_MUL = 2 * (64 + 64 + 1)
 FP_MULS_PER_ADD = {False: 16, True: 48}   # raw point add: G1, G2 (3 per Fp2)
+FP_MULS_PER_DBL = {False: 7, True: 21}    # point doubling
 
 
 def log(msg: str):
@@ -202,6 +227,36 @@ def k1_bound_ms(fops, xs, imad_rate):
                                        else "bytes"), adds
 
 
+def k3_bound_ms(fops, P, bits, n_bits, seg, imad_rate):
+    """What these inputs need: per lane with P != O and s != 0, one doubling
+    for every bit below the top set bit and one addition for every set bit
+    after it; per segment one addition for each nonzero lane result after
+    the first."""
+    import torch
+    from zksc_tpu_torch.ops import ec
+    g2 = isinstance(fops, ec.Fp2Ops)
+    n = fops.lane_width(P.x)
+    b = (bits != 0).to(torch.int64)
+    if b.dim() == 1:
+        b = b[:, None].expand(n_bits, n)
+    pop = b.sum(0)
+    top = (b * torch.arange(n_bits, device=b.device)[:, None]).max(0).values
+    live = nonid(fops, P) & (pop > 0)
+    dbls = int(torch.where(live, top, 0).sum().item())
+    adds = int(torch.where(live, pop - 1, 0).sum().item())
+    if seg is not None:
+        per_seg = live.reshape(-1, seg).sum(1)
+        adds += int((per_seg - 1).clamp(min=0).sum().item())
+    imad = (dbls * FP_MULS_PER_DBL[g2] + adds * FP_MULS_PER_ADD[g2]) \
+        * IMAD_PER_FP_MUL
+    words = 3 * 16 * (2 if g2 else 1)
+    n_out = n if seg is None else n // seg
+    nbytes = 4 * (words * (n + n_out) + bits.numel())
+    t_ops, t_bytes = imad / imad_rate, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes"), adds + dbls
+
+
 # ------------------------------------------------------------- phases
 
 def compare(label: str, run, plain, flat):
@@ -269,21 +324,146 @@ def check_kernels(g1a, g1b, g2h, N=8192, S=16, C=2048):
     return err
 
 
+def ladder_inputs(fops, P, n_bits: int, seed: int):
+    """Per-lane bits with crafted lanes: scalar 0 (lane 0), scalar 1
+    (lane 1), identity points with scalars 1 and random (lanes 2, 3); lanes
+    4 and 68 (and 6 and 38) the same point and scalar, lanes 5 and 69 (and
+    7 and 39) opposite points under one scalar: the first reduction round
+    adds lane t + 64 to lane t in groups of 128 lanes and lane t + 32 in
+    segments of 64, so these pairs meet as P + P and P + (-P)."""
+    import torch
+    from zksc_tpu_torch.fields.limb import Fp
+    from zksc_tpu_torch.ops import ec
+    from zksc_tpu_torch.ops.ec import JacPoint
+    g2 = isinstance(fops, ec.Fp2Ops)
+    n = fops.lane_width(P.x)
+    gen = torch.Generator().manual_seed(seed)
+    bits = torch.randint(0, 2, (n_bits, n), generator=gen, dtype=torch.int32)
+    bits[:, 0] = 0
+    bits[:, 1] = 0
+    bits[0, 1] = 1
+    bits[:, 2] = 0
+    bits[0, 2] = 1
+    for lane, src in ((68, 4), (69, 5), (38, 6), (39, 7)):
+        bits[:, lane] = bits[:, src]
+    coords = [a.clone() for a in P]
+
+    def put(lane, src, neg=False):
+        for i, a in enumerate(coords):
+            val = a[:, src] if not g2 else a[:, [src, n + src]]
+            if neg and i == 1:
+                val = Fp.neg(val)
+            if g2:
+                a[:, [lane, n + lane]] = val
+            else:
+                a[:, lane] = val
+    put(68, 4)
+    put(69, 5, neg=True)
+    put(38, 6)
+    put(39, 7, neg=True)
+    one = Fp.broadcast_const(1, (1,), device=P.x.device)[:, 0]
+    for lane in (2, 3):
+        coords[0][:, lane] = 0
+        coords[1][:, lane] = one
+        coords[2][:, lane] = 0
+        if g2:
+            for a in coords:
+                a[:, n + lane] = 0
+    return JacPoint(*(a.contiguous() for a in coords)), bits.to(P.x.device)
+
+
+def check_ladder(g1a, g2h, imad_rate, N=4096, n_bits=32):
+    """Phase 3, K3: kernel vs plain at check sizes, then 254 bits vs the
+    host's scalar products. Returns (max_abs_err, {variant: plain ms})."""
+    import random
+
+    import torch
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.fields.limb import Fp
+    from zksc_tpu_torch.ops import ec, msm_kernels
+    err, plain_ms = 0, {}
+    for g2 in (False, True):
+        fops = ec.G2_OPS if g2 else ec.G1_OPS
+        tag = "G2" if g2 else "G1"
+        P = g2_lanes(g2h, 0, N) if g2 else g1_lanes(g1a, 0, N)
+        P, bits = ladder_inputs(fops, P, n_bits, seed=11 + g2)
+        shared = bits[:, 7].contiguous()
+        t = time.time()
+        per_lane = msm_kernels.ladder_plain(fops, P, bits, n_bits)
+        torch.cuda.synchronize()
+        plain_ms[f"{tag} unreduced"] = (time.time() - t) * 1e3
+        cases = [("unreduced", bits, None, per_lane)]
+        for seg in (64, N):
+            t = time.time()
+            want = msm_kernels._grouped_reduce(fops, per_lane, seg)
+            torch.cuda.synchronize()
+            plain_ms[f"{tag} reduced seg={seg}"] = \
+                plain_ms[f"{tag} unreduced"] + (time.time() - t) * 1e3
+            cases.append((f"reduced seg={seg}", bits, seg, want))
+        t = time.time()
+        want = msm_kernels.ladder_plain(fops, P, shared, n_bits)
+        torch.cuda.synchronize()
+        plain_ms[f"{tag} unreduced shared bits"] = (time.time() - t) * 1e3
+        cases.append(("unreduced shared bits", shared, None, want))
+        for label, b, seg, want in cases:
+            got = msm_kernels.ladder(fops, P, b, n_bits, seg)
+            torch.cuda.synchronize()
+            e = max_abs_diff(list(got), list(want))
+            ms = cuda_ms(lambda: msm_kernels.ladder(fops, P, b, n_bits, seg), 5)
+            bound, by, ops = k3_bound_ms(fops, P, b, n_bits, seg, imad_rate)
+            log(f"K3 ladder {tag} {label} N={N} bits={n_bits}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms.get(f'{tag} {label}', 0):.2f} "
+                f"ms, bound {bound:.4f} ms ({by}, {ops} point ops), "
+                f"max_abs_err={e}")
+            if e:
+                raise AssertionError(f"K3 {tag} {label}: kernel != plain")
+            err = max(err, e)
+
+    # 254-bit ladders on 8 lanes against the host's scalar products
+    rnd = random.Random(17)
+    scal = [rnd.randrange(1, host.R) for _ in range(8)]
+    from zksc_tpu_torch.fields.limb import Fr
+    bits = ec.scalars_to_bits(Fr, Fr.to_device(scal, mont=False,
+                                                device=g1a.x.device), 254)
+    for g2 in (False, True):
+        fops = ec.G2_OPS if g2 else ec.G1_OPS
+        P = g2_lanes(g2h, 0, 8) if g2 else g1_lanes(g1a, 0, 8)
+        conv = ec.g2_jac_to_host_affine if g2 else ec.g1_jac_to_host_affine
+        mul, add = (host.g2_mul, host.g2_add) if g2 else (host.g1_mul, host.g1_add)
+        pts = conv(Fp, P, host.P)
+        want = [mul(p, s) for p, s in zip(pts, scal)]
+        got = conv(Fp, msm_kernels.ladder(fops, P, bits, 254), host.P)
+        total = None
+        for w in want:
+            total = add(total, w)
+        got_sum = conv(Fp, msm_kernels.ladder(fops, P, bits, 254, seg=8),
+                       host.P)
+        if got != want or got_sum != [total]:
+            raise AssertionError(f"K3 {'G2' if g2 else 'G1'} 254-bit ladder "
+                                 "!= bn254_host")
+        log(f"K3 ladder {'G2' if g2 else 'G1'} 254 bits x 8 lanes == "
+            "bn254_host (each lane and the sum)")
+    return err, plain_ms
+
+
 class Recorder:
-    """Keeps, per kernel variant, the largest input the main path gave it
-    (wraps the module attributes that ops/msm.py calls; the wrapped
-    functions run unchanged)."""
+    """Keeps, per kernel variant, the first of the largest inputs a path
+    gave it (wraps the module attributes that ops/msm.py and ops/ec.py call;
+    the wrapped functions run unchanged). On the ceremony's path the K3
+    input kept is h_query: it and c_query have the same lane count, and
+    _apply_delta scales h_query first."""
 
     def __init__(self):
-        from zksc_tpu_torch.ops import ec_kernels
-        self.mod = ec_kernels
-        self.orig = (ec_kernels.chunk_scan, ec_kernels.jac_add_n)
+        from zksc_tpu_torch.ops import ec_kernels, msm_kernels
+        self.mod, self.mod3 = ec_kernels, msm_kernels
+        self.orig = (ec_kernels.chunk_scan, ec_kernels.jac_add_n,
+                     msm_kernels.ladder)
         self.calls = {}
 
     def __enter__(self):
         from zksc_tpu_torch.ops import ec
         m = self.mod
-        cs, ja = self.orig
+        cs, ja, la = self.orig
 
         def chunk_scan(fops, xs, S, inclusive):
             key = ("chunk_scan", isinstance(fops, ec.Fp2Ops), inclusive)
@@ -299,20 +479,73 @@ class Recorder:
                 self.calls[key] = (fops, P, Q)
             return ja(fops, P, Q, complete)
 
+        def ladder(fops, points, bits, n_bits, seg=None):
+            mode = "reduced" if seg is not None else (
+                "unreduced shared bits" if bits.dim() == 1 else "unreduced")
+            key = ("ladder", isinstance(fops, ec.Fp2Ops), mode)
+            prev = self.calls.get(key)
+            if prev is None or points.x.shape[-1] > prev[1].x.shape[-1]:
+                self.calls[key] = (fops, points, bits, n_bits, seg)
+            return la(fops, points, bits, n_bits, seg)
+
         m.chunk_scan, m.jac_add_n = chunk_scan, jac_add_n
+        self.mod3.ladder = ladder
         return self
 
     def __exit__(self, *exc):
-        self.mod.chunk_scan, self.mod.jac_add_n = self.orig
+        self.mod.chunk_scan, self.mod.jac_add_n, self.mod3.ladder = self.orig
 
 
-def time_kernels(calls, imad_rate):
-    """Phase 5: replay each variant's largest main-path input."""
-    from zksc_tpu_torch.ops import ec_kernels
+def time_kernels(calls, imad_rate, path: str):
+    """Phase 5: replay each variant's largest input of one path."""
+    import torch
+    from zksc_tpu_torch.ops import ec_kernels, msm_kernels
+    from zksc_tpu_torch.ops.ec import JacPoint
     rows = []
     for key in sorted(calls):
         name, g2, flag = key
         tag = "G2" if g2 else "G1"
+        if name == "ladder":
+            fops, P, bits, n_bits, seg = calls[key]
+            run = lambda: msm_kernels.ladder(fops, P, bits, n_bits, seg)
+            bound, by, adds = k3_bound_ms(fops, P, bits, n_bits, seg, imad_rate)
+            n = fops.lane_width(P.x)
+            shape = f"N={n} bits={n_bits}" + ("" if seg is None else f" seg={seg}")
+            label = f"{tag} {flag}"
+            flat = list
+            if seg is None and n > 128:
+                # the plain ladder over every lane would take minutes: hold
+                # the kernel to it on a sample that reaches every block of
+                # 128 lanes (the first and last blocks whole, and one lane
+                # at a different offset in each block)
+                blk = torch.arange(n // 128, device=P.x.device)
+                idx = torch.unique(torch.cat([
+                    torch.arange(128, device=P.x.device), blk * 128 + blk % 128,
+                    torch.arange(n - 128, n, device=P.x.device)]))
+                pick = lambda A: JacPoint(*(fops.lane_map(
+                    lambda a: a[:, idx].contiguous(), c) for c in A))
+                hb = bits if bits.dim() == 1 else bits[:, idx].contiguous()
+                sub = pick(P)
+                got = pick(run())
+                want = msm_kernels.ladder_plain(fops, sub, hb, n_bits)
+                err = max_abs_diff(list(got), list(want))
+                if err:
+                    raise AssertionError(f"{name} {label}: kernel != plain")
+                ms = cuda_ms(run, reps=3)
+                plain_ms = None
+            else:
+                ms, plain_ms, err = compare(f"{name} {label} {shape}", run,
+                                            lambda: msm_kernels.ladder_plain(
+                                                fops, P, bits, n_bits, seg),
+                                            flat)
+            log(f"[{path}] {name} {label} {shape}: kernel {ms:.4f} ms, plain "
+                f"{'not run at this size' if plain_ms is None else f'{plain_ms:.2f} ms'}"
+                f", bound {bound:.4f} ms ({by}, {adds} point ops), "
+                f"max_abs_err={err}")
+            rows.append({"name": name, "path": path, "variant": label,
+                         "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by, "max_abs_err": err})
+            continue
         if name == "chunk_scan":
             fops, xs, S = calls[key]
             run = lambda: ec_kernels.chunk_scan(fops, xs, S, flag)
@@ -331,13 +564,166 @@ def time_kernels(calls, imad_rate):
             label = f"{tag} complete={flag}"
         ms, plain_ms, err = compare(f"{name} {label} {shape}", run, plain,
                                     flat)
-        log(f"{name} {label} {shape}: kernel {ms:.4f} ms, plain "
+        log(f"[{path}] {name} {label} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}, {adds} adds), "
             f"max_abs_err={err}")
-        rows.append({"name": name, "variant": label, "shape": shape,
+        rows.append({"name": name, "path": path, "variant": label,
+                     "shape": shape,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "adds_needed": adds, "max_abs_err": err})
     return rows
+
+
+AES_SEED = 20240          # keygen --seed of phase 6 (not a secret key)
+
+
+def drive_aes(api, reset_counts, counts) -> dict:
+    """Phase 6. Returns the kernel launch counts of the path."""
+    import random
+
+    import torch
+    from zksc_tpu_torch import keygen
+    from zksc_tpu_torch.groth16 import artifacts as art, ceremony
+    from zksc_tpu_torch.operators import CircuitSpec
+    for alg in ("aes-128-ctr", "aes-256-ctr"):
+        t = time.time()
+        cs = CircuitSpec(alg).cs
+        with open(os.path.join(HERE, "artifacts", alg, "manifest.json")) as f:
+            want = json.load(f)["digest"]
+        log(f"phase 6 {alg} circuit: {cs.n_constraints} constraints, "
+            f"{cs.n_wires} wires, digest {cs.digest()[:12]}.. "
+            f"({time.time() - t:.2f} s)")
+        if cs.digest() != want:
+            raise AssertionError(f"{alg} digest {cs.digest()} != manifest {want}")
+    alg = "aes-128-ctr"
+    digest = CircuitSpec(alg).cs.digest()
+    store = os.path.join(keygen.KEY_STORE, alg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    times = keygen.run(alg, seed=AES_SEED,
+                       log=lambda m: log(f"phase 6 keygen {m}"))
+    log("phase 6 keygen stages: " + " ".join(f"{k}={v:.2f}"
+                                             for k, v in times.items())
+        + f" (total {time.time() - t0:.2f} s)")
+    t = time.time()
+    pk, vk = art.load_keys(store, expected_digest=digest, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 6 load_keys: {time.time() - t:.2f} s")
+    t = time.time()
+    pk1, vk1, con = ceremony.contribute(pk, vk, entropy=b"chip_smoke")
+    torch.cuda.synchronize()
+    log(f"phase 6 ceremony contribute (K3 over h_query and c_query, "
+        f"{pk.h_query.x.shape[1]} and {pk.c_query.x.shape[1]} lanes): "
+        f"{time.time() - t:.2f} s")
+    t = time.time()
+    checks = {
+        "verify_chain": ceremony.verify_chain(pk.delta_g1, pk.delta_g2, [con]),
+        "h_query scaled": ceremony.verify_query_scaling(
+            pk.h_query, pk1.h_query, pk.delta_g2, pk1.delta_g2, 16),
+        "c_query scaled": ceremony.verify_query_scaling(
+            pk.c_query, pk1.c_query, pk.delta_g2, pk1.delta_g2, 16),
+        "unscaled query rejected": not ceremony.verify_query_scaling(
+            pk.h_query, pk.h_query, pk.delta_g2, pk1.delta_g2, 16),
+    }
+    log(f"phase 6 ceremony checks {checks} ({time.time() - t:.2f} s)")
+    if not all(checks.values()):
+        raise AssertionError(f"ceremony checks failed: {checks}")
+    t = time.time()
+    art.save_keys(store, pk1, vk1)
+    log(f"phase 6 save contributed keys: {time.time() - t:.2f} s")
+    del pk, vk, pk1, vk1
+
+    rnd = random.Random(2025)
+    key = bytes(rnd.randrange(256) for _ in range(16))
+    iv = bytes(rnd.randrange(256) for _ in range(12))
+    ct = bytes(rnd.randrange(256) for _ in range(80))
+    blind = random.Random(9)
+    rng = lambda: blind.randrange(1, 1 << 250)
+    for i in (1, 2):
+        t = time.time()
+        env = api.generate_proof(alg, key, ct, iv, device="cuda", rng=rng)
+        torch.cuda.synchronize()
+        op = api.get_operator(alg, "groth16", "cuda")
+        stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
+        log(f"phase 6 aes-128-ctr proof {i} ({'keys load + context + ' if i == 1 else ''}"
+            f"prove): {time.time() - t:.3f} s ({stages})")
+    launches = counts()
+    log(f"phase 6 launches over keygen, ceremony and both proofs: {launches}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the AES path")
+    t = time.time()
+    ok = api.verify_proof(env, ct, iv, device="cuda")
+    log(f"phase 6 verify: {ok} ({time.time() - t:.2f} s)")
+    if not ok:
+        raise AssertionError("the aes-128-ctr proof did not verify")
+    bad = ct[:5] + bytes([ct[5] ^ 0x10]) + ct[6:]
+    if api.verify_proof(env, bad, iv, device="cuda"):
+        raise AssertionError("a tampered aes-128-ctr ciphertext verified")
+    log(f"phase 6 tampered ciphertext rejected; phase 6 total "
+        f"{time.time() - t0:.2f} s")
+    return launches
+
+
+def _power_circuit(n_mul: int, extra_bits: bool):
+    """out == x^(n_mul+1) + x + 41 (plus an 8-bit decomposition of x + 2
+    when extra_bits): the x^13 toy of tests/port/test_torch_prove.py for
+    n_mul = 12."""
+    def define(api, v):
+        x, out = v["x"][0], v["out"][0]
+        acc = x
+        for _ in range(n_mul):
+            acc = api.mul(acc, x)
+        api.assert_eq(api.add(acc, x, api.constant(41)), out)
+        if extra_bits:
+            bits = api.to_bits(api.add(x, api.constant(2)), 8)
+            api.assert_eq(api.from_bits(bits), api.add(x, api.constant(2)))
+    return define
+
+
+def drive_ladder_branch(reset_counts, counts) -> dict:
+    """Phase 7. Returns the kernel launch counts of the path."""
+    import random
+
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.groth16 import ProverContext, setup, verify
+    from zksc_tpu_torch.r1cs import compile_circuit, generate_witness
+    pub, priv = [("out", 1)], [("x", 1)]
+    reset_counts()
+    for label, n_mul, extra in (("x^13 toy", 12, True), ("x^100", 99, False)):
+        define = _power_circuit(n_mul, extra)
+        cs = compile_circuit(define, pub, priv)
+        srng = random.Random(23)
+        t = time.time()
+        pk, vk = setup(cs, rng=lambda: srng.randrange(2, host.R), device="cuda")
+        x = 7
+        out = (pow(x, n_mul + 1, host.R) + x + 41) % host.R
+        wit = generate_witness(define, pub, priv, {"out": [[out]]},
+                               {"x": [[x]]}, batch=1)[:, 0]
+        proofs = []
+        for force in (False, True):
+            br = random.Random(5)
+            ctx = ProverContext(cs, pk, device="cuda", force_pippenger=force)
+            t1 = time.time()
+            p = ctx.prove(wit, rng=lambda: br.randrange(1, host.R))
+            proofs.append((p, time.time() - t1))
+        ok = verify(vk, proofs[0][0], [out])
+        (lad, _), (pip, _) = proofs
+        same = (lad.a, lad.b, lad.c) == (pip.a, pip.b, pip.c)
+        log(f"phase 7 {label}: m_pad {ctx.m_pad}, ladder proof "
+            f"{proofs[0][1]:.3f} s, pippenger proof {proofs[1][1]:.3f} s, "
+            f"equal {same}, verify {ok} ({time.time() - t:.2f} s with setup)")
+        if not (same and ok):
+            raise AssertionError(f"phase 7 {label}: ladder proof != pippenger "
+                                 "proof or does not verify")
+    launches = counts()
+    log(f"phase 7 launches: {launches}")
+    if launches["ladder"] <= 0:
+        raise AssertionError("K3 was not launched on the ladder branch")
+    return launches
 
 
 def profile_proof(prove):
@@ -391,25 +777,35 @@ def main(argv) -> int:
     log(f"SMs {props.multi_processor_count}, max SM clock {max_clk_mhz} MHz, "
         f"IMAD rate {imad_rate:.4g}/s")
 
-    # ---- 2. build
+    # ---- 2. build: every nvcc started together
     from zksc_tpu_torch.native import tape_lib
-    from zksc_tpu_torch.ops import ec_kernels
+    from zksc_tpu_torch.ops import cuda_build, ec_kernels, msm_kernels
     t = time.time()
-    nvcc_s = ec_kernels.build(verbose=True)
-    log(f"phase 2 build: nvcc libzksc_ec.so {nvcc_s:.2f} s "
-        f"(wall {time.time() - t:.2f} s)")
+    nvcc_s = cuda_build.build(verbose=True)
+    log(f"phase 2 build: nvcc " + ", ".join(
+        f"{cuda_build.LIBS[k][2]} {v:.2f} s" for k, v in nvcc_s.items())
+        + f" (wall {time.time() - t:.2f} s)")
     t = time.time()
     if tape_lib() is None:
         raise RuntimeError("g++ build of the witness-tape library failed")
     log(f"phase 2 build: g++ libzksc_tape.so {time.time() - t:.2f} s")
 
+    def reset_counts():
+        ec_kernels.reset_launch_counts()
+        msm_kernels.reset_launch_counts()
+
+    def counts():
+        return {**ec_kernels.LAUNCHES, **msm_kernels.LAUNCHES}
+
     # ---- 3. kernels vs plain at check sizes
     g1a, g1b, g2h = load_points(device)
     err = check_kernels(g1a, g1b, g2h)
+    k3_err, k3_plain_ms = check_ladder(g1a, g2h, imad_rate)
+    err = max(err, k3_err)
     log(f"phase 3 kernel checks passed (max_abs_err {err})")
     del g1a, g1b, g2h
 
-    # ---- 4. main path at full size
+    # ---- 4. chacha20 main path at full size
     from zksc_tpu_torch import api
     import random
     rnd = random.Random(2024)
@@ -419,23 +815,23 @@ def main(argv) -> int:
     blind = random.Random(7)
     rng = lambda: blind.randrange(1, 1 << 250)
     torch.cuda.reset_peak_memory_stats()
-    recorder = Recorder()
-    with recorder:
+    rec_chacha = Recorder()
+    with rec_chacha:
         t = time.time()
         env = api.generate_proof("chacha20", key, ct, iv, device="cuda", rng=rng)
         log(f"phase 4 proof 1 (keys load + context + prove): "
             f"{time.time() - t:.2f} s")
     op = api.get_operator("chacha20", "groth16", "cuda")
-    ec_kernels.reset_launch_counts()
+    reset_counts()
     t = time.time()
     env = api.generate_proof("chacha20", key, ct, iv, device="cuda", rng=rng)
     torch.cuda.synchronize()
     prove_s = time.time() - t
-    launches = dict(ec_kernels.LAUNCHES)
+    launches = counts()
     stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
     log(f"phase 4 proof 2: {prove_s:.3f} s ({stages}); launches {launches}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("chunk_scan", "jac_add_n"):
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     peak = torch.cuda.max_memory_allocated()
     log(f"phase 4 peak device memory {peak / 2**30:.3f} GiB")
@@ -449,33 +845,57 @@ def main(argv) -> int:
         raise AssertionError("a tampered ciphertext verified")
     log("phase 4 tampered ciphertext rejected")
 
-    # ---- 5. kernels at the main path's shapes
-    rows = time_kernels(recorder.calls, imad_rate)
+    # ---- 6. aes-128-ctr: keys made on the card, ceremony, proof
+    rec_aes = Recorder()
+    with rec_aes:
+        aes_launches = drive_aes(api, reset_counts, counts)
+
+    # ---- 7. the ladder branch of ProverContext
+    rec_ladder = Recorder()
+    with rec_ladder:
+        ladder_launches = drive_ladder_branch(reset_counts, counts)
+
+    # ---- 5. kernels at the paths' shapes
+    rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")
+            + time_kernels(rec_aes.calls, imad_rate, "aes-128-ctr")
+            + time_kernels(rec_ladder.calls, imad_rate, "ladder branch"))
     log("phase 5 kernel timing done")
     if "--profile" in argv:
         profile_proof(lambda: api.generate_proof("chacha20", key, ct, iv,
                                                  device="cuda", rng=rng))
     err = max([err] + [r["max_abs_err"] for r in rows])
 
-    def head(name, replaces, variant):
-        r = next(r for r in rows if r["name"] == name and r["variant"] == variant)
-        return {"name": name, "route": "cuda",
-                "source": "zksc_tpu_torch/csrc/ec_kernels.cu",
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+    def head(name, replaces, source, path, variant, n_launch, plain_ms=None):
+        r = next(r for r in rows if r["name"] == name and r["path"] == path
+                 and r["variant"] == variant)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"] if plain_ms is None else plain_ms,
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None, "shape": f"{variant} {r['shape']}",
+                "library_ms": None, "path": path,
+                "shape": f"{variant} {r['shape']}",
                 "variants": [v for v in rows if v["name"] == name]}
 
+    ec_src = "zksc_tpu_torch/csrc/ec_kernels.cu"
     print(json.dumps({"kernels": [
-        head("chunk_scan", "zksc_tpu/ops/pallas_ec.py:120", "G1 inclusive=True"),
-        head("jac_add_n", "zksc_tpu/ops/pallas_ec.py:162", "G1 complete=False"),
+        head("chunk_scan", "zksc_tpu/ops/pallas_ec.py:120", ec_src, "chacha20",
+             "G1 inclusive=True", launches["chunk_scan"]),
+        head("jac_add_n", "zksc_tpu/ops/pallas_ec.py:162", ec_src, "chacha20",
+             "G1 complete=False", launches["jac_add_n"]),
+        # K3's plain time is that of the check size (phase 3, N=4,096 x 32
+        # bits): the plain ladder at the ceremony's shape takes minutes
+        dict(head("ladder", "zksc_tpu/ops/pallas_msm.py:58",
+                  "zksc_tpu_torch/csrc/msm_kernels.cu", "aes-128-ctr",
+                  "G1 unreduced shared bits", aes_launches["ladder"],
+                  k3_plain_ms["G1 unreduced shared bits"]),
+             plain_shape="G1 unreduced shared bits N=4096 bits=32",
+             launches_ladder_branch=ladder_launches["ladder"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

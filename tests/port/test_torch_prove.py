@@ -3,7 +3,10 @@
 Toy circuit (out == x^13 + x + 41, plus an 8-bit decomposition): the JAX
 package's setup() makes the key under a fixed random.Random seed, the key
 goes through proving_key_from_numpy, and the port proves on the CPU with a
-fixed blinding rng. The proof must equal, exactly, the Groth16 proof that
+fixed blinding rng: its m_pad of 32 takes the double-and-add ladder branch
+with B2 on the host, as the JAX prover does, and with force_pippenger the
+bucket MSMs give the very same proof. The proof must equal, exactly, the
+Groth16 proof that
 the JAX prover's algorithm defines for these inputs (groth16/prove.py:
 prove_batch): its five MSMs and the quotient h recomputed here with the JAX
 package's host arithmetic and plain polynomial algebra, combined with the
@@ -178,6 +181,26 @@ def test_proof_equals_reference_and_cross_verifies(toy):
     assert tverify(jvk, TProof(A, B, C), [OUT])
     assert not jverify(jvk, JProof(proof.a, proof.b, proof.c), [OUT + 1])
     assert not tverify(jvk, proof, [OUT + 1])
+
+
+def test_ladder_branch_equals_pippenger_branch(toy):
+    jcs, jpk, jvk, wit = toy
+    arrays, meta = _jax_key_arrays(jpk)
+    pk = proving_key_from_numpy(arrays, meta, device="cpu")
+    tcs = t_compile(define, PUB, PRIV)
+    ladder = ProverContext(tcs, pk, device="cpu")
+    pip = ProverContext(tcs, pk, device="cpu", force_pippenger=True)
+    assert ladder.m_pad == 32 and not ladder.force_pippenger
+    p1 = ladder.prove(wit, rng=_blinding())
+    p2 = pip.prove(wit, rng=_blinding())
+    # the ladder proof is held to the reference proof by the test above
+    assert (p1.a, p1.b, p1.c) == (p2.a, p2.b, p2.c)
+    # witness_to_device: the ladder's bits of the widest witness value
+    z_mont, z_bits, nb = ladder.witness_to_device(wit)
+    assert nb == 40 and tuple(z_bits.shape) == (40, 32)
+    vals = [int(v) % host.R for v in wit] + [0] * (32 - len(wit))
+    assert [sum(int(z_bits[k, i]) << k for k in range(40))
+            for i in range(32)] == vals
 
 
 def test_chacha20_digest_witness_and_keys():

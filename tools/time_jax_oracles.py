@@ -6,6 +6,10 @@ of a jitted function includes its compile.
     python tools/time_jax_oracles.py local_scan  # msm._local_scan, G1/G2
     python tools/time_jax_oracles.py prove       # setup + prove, x^13 circuit
     python tools/time_jax_oracles.py msm         # msm_pippenger, 32 G1 points
+    python tools/time_jax_oracles.py ladder      # msm_double_and_add G1/G2,
+                                                 # scale_points, the K3 body
+    python tools/time_jax_oracles.py setup       # setup (x^7+3), fixed base,
+                                                 # ceremony._apply_delta
 
 Prints wall seconds per step and the child's peak RSS; a child still running
 after --limit seconds (default 240) is killed and reported as such.
@@ -96,6 +100,68 @@ def _child(what: str):
         t = time.time()
         msm.msm_pippenger(ec.G1_OPS, pts, sp, 40)
         print(f"msm_pippenger G1 40-bit: {time.time() - t:.1f} s", flush=True)
+    elif what == "ladder":
+        import functools
+
+        import jax.numpy as jnp
+        from jax.experimental import pallas as pl
+        from zksc_tpu.ops import pallas_msm
+        g1 = ec.g1_points_to_device(
+            Fp, [host.g1_mul(host.G1_GEN, rng.randrange(1, host.R))
+                 for _ in range(16)])
+        g2 = ec.g2_points_to_device(
+            Fp, [host.g2_mul(host.G2_GEN, rng.randrange(1, host.R))
+                 for _ in range(16)])
+        sp = Fr.to_device([rng.randrange(1 << 32) for _ in range(16)],
+                          mont=False)
+        bits = ec.scalars_to_bits(Fr, sp, 32)
+        for name, fops, P in (("G1", ec.G1_OPS, g1), ("G2", ec.G2_OPS, g2)):
+            step(f"msm_double_and_add {name} 16 lanes 32 bits",
+                 lambda: ec.msm_double_and_add(fops, P, bits, 32))
+            step(f"scale_points {name} 16 lanes 254 bits",
+                 lambda: ec.scale_points(fops, P, rng.randrange(host.R)))
+        pts = ec.g1_points_to_device(
+            Fp, [host.g1_mul(host.G1_GEN, rng.randrange(1, host.R))
+                 for _ in range(pallas_msm.TILE)])
+        sp = Fr.to_device([rng.randrange(1 << 8)
+                           for _ in range(pallas_msm.TILE)], mont=False)
+        b8 = ec.scalars_to_bits(Fr, sp, 8)
+        T = pallas_msm.TILE
+        spec = lambda rows: pl.BlockSpec((rows, T), lambda i: (0, i))
+        call = pl.pallas_call(
+            functools.partial(pallas_msm._ladder_tile_kernel, n_bits=8),
+            grid=(1,), in_specs=[spec(8)] + [spec(16)] * 3,
+            out_specs=(spec(16),) * 3,
+            out_shape=(jax.ShapeDtypeStruct((16, T), jnp.uint32),) * 3,
+            interpret=True)
+        step("pallas_msm._ladder_tile_kernel interpret, 256 lanes 8 bits",
+             lambda: call(b8, pts.x, pts.y, pts.z))
+    elif what == "setup":
+        from zksc_tpu.groth16 import ceremony, setup
+        from zksc_tpu.r1cs import compile_circuit
+
+        def define(api, v):
+            x, out = v["x"][0], v["out"][0]
+            acc = x
+            for _ in range(6):
+                acc = api.mul(acc, x)
+            api.assert_eq(api.add(acc, api.constant(3)), out)
+
+        cs = compile_circuit(define, [("out", 1)], [("x", 1)])
+        srng = random.Random(7)
+        t = time.time()
+        pk, vk = setup(cs, rng=lambda: srng.randrange(2, host.R))
+        print(f"setup: {time.time() - t:.1f} s", flush=True)
+        for g2 in (False, True):
+            base = host.G2_GEN if g2 else host.G1_GEN
+            t = time.time()
+            msm.batch_scalar_mul_fixed_base(
+                [rng.randrange(host.R) for _ in range(8)], base, g2=g2)
+            print(f"batch_scalar_mul_fixed_base g2={g2} 8 scalars: "
+                  f"{time.time() - t:.1f} s", flush=True)
+        t = time.time()
+        ceremony._apply_delta(pk, vk, 12345, "", "contribution", "")
+        print(f"ceremony._apply_delta: {time.time() - t:.1f} s", flush=True)
     else:
         raise SystemExit(f"unknown measurement {what!r}")
 

@@ -1,10 +1,10 @@
 """Public proving API: generate_proof(s) / verify_proof.
 
-Ported from the JAX package's ``api.py`` for the chacha20 statement under
-the Groth16 engine: chunk the ciphertext into cipher blocks, derive
-per-block counters from byte offsets, pad to the fixed circuit chunk size,
-decrypt locally to obtain the expected plaintext (the witness "out"),
-dispatch to the engine operator, wrap the proof envelope
+Ported from the JAX package's ``api.py`` for the chacha20, aes-128-ctr and
+aes-256-ctr statements under the Groth16 engine: chunk the ciphertext into
+cipher blocks, derive per-block counters from byte offsets, pad to the fixed
+circuit chunk size, decrypt locally to obtain the expected plaintext (the
+witness "out"), dispatch to the engine operator, wrap the proof envelope
 {algorithm, proofData, plaintext}.
 
 Every entry point takes ``device=`` and runs on the GPU ("cuda") unless the
@@ -63,10 +63,20 @@ class ProofEnvelope:
                    d.get("dataLen", len(d["plaintext"]) // 2))
 
 
+PORTED_ALGORITHMS = ("chacha20", "aes-128-ctr", "aes-256-ctr")
+
+
 def _check_algorithm(algorithm: str):
-    if algorithm != "chacha20":
-        raise ValueError(
-            f"algorithm {algorithm!r} is not ported yet (only chacha20)")
+    if algorithm not in PORTED_ALGORITHMS:
+        raise ValueError(f"algorithm {algorithm!r} is not ported yet "
+                         f"({', '.join(PORTED_ALGORITHMS)})")
+
+
+def _decrypt(algorithm: str, key: bytes, nonce: bytes, counter: int,
+             data: bytes) -> bytes:
+    if algorithm.startswith("chacha20"):
+        return ciphers.chacha20_encrypt(key, nonce, counter, data)
+    return ciphers.aes_ctr_encrypt(key, nonce, counter, data)
 
 
 def _pad_with_boundaries(data: bytes, boundaries: list, block_size: int,
@@ -125,7 +135,7 @@ def generate_zk_witness(algorithm: str, key: bytes, ciphertext: bytes,
                 " split the stream into chunks and prove each separately")
         padded_ct = ciphertext + bytes(cfg.chunk_size_bytes - len(ciphertext))
         data_len = len(ciphertext)
-    plaintext = ciphers.chacha20_encrypt(key, iv, start_counter, padded_ct)
+    plaintext = _decrypt(algorithm, key, iv, start_counter, padded_ct)
     blocks = [BlockInfo(nonce=iv, counter=start_counter + b,
                         boundary=(None if boundaries is None else bnds[b]))
               for b in range(n_blocks)]

@@ -14,6 +14,7 @@
 // by one plain nvcc call into a shared library with a C interface.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace zksc {
@@ -235,6 +236,65 @@ __device__ __forceinline__ Jac<F> jac_add(const Jac<F>& P, const Jac<F>& Q) {
   if (p_inf) return Q;
   if (COMPLETE && f_is_zero(H) && f_is_zero(r)) return jac_double(P);
   return R;
+}
+
+// ---- the tensor boundary: 16 x 16-bit limbs per Fp, limb-major int32
+// arrays (read as uint32). Limb k of lane i sits at ptr[k * ld + i]; a G2
+// coordinate is two component arrays c0, c1.
+
+struct InArrs {
+  const uint32_t* p[6];   // G1: x, y, z; G2: x0, x1, y0, y1, z0, z1
+};
+
+struct OutArrs {
+  uint32_t* p[6];
+};
+
+__device__ __forceinline__ Fp load_fp(const uint32_t* a, size_t idx, size_t ld) {
+  Fp r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r.w[k] = a[idx + (size_t)(2 * k) * ld] | (a[idx + (size_t)(2 * k + 1) * ld] << 16);
+  return r;
+}
+
+__device__ __forceinline__ void store_fp(uint32_t* a, size_t idx, size_t ld, const Fp& v) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    a[idx + (size_t)(2 * k) * ld] = v.w[k] & 0xFFFFu;
+    a[idx + (size_t)(2 * k + 1) * ld] = v.w[k] >> 16;
+  }
+}
+
+__device__ __forceinline__ void load_coord(Fp& f, const InArrs& a, int c, size_t idx, size_t ld) {
+  f = load_fp(a.p[c], idx, ld);
+}
+__device__ __forceinline__ void load_coord(Fp2& f, const InArrs& a, int c, size_t idx, size_t ld) {
+  f.c0 = load_fp(a.p[2 * c], idx, ld);
+  f.c1 = load_fp(a.p[2 * c + 1], idx, ld);
+}
+__device__ __forceinline__ void store_coord(const OutArrs& a, int c, size_t idx, size_t ld, const Fp& f) {
+  store_fp(a.p[c], idx, ld, f);
+}
+__device__ __forceinline__ void store_coord(const OutArrs& a, int c, size_t idx, size_t ld, const Fp2& f) {
+  store_fp(a.p[2 * c], idx, ld, f.c0);
+  store_fp(a.p[2 * c + 1], idx, ld, f.c1);
+}
+
+template <class F>
+__device__ __forceinline__ Jac<F> load_point(const InArrs& a, size_t idx, size_t ld) {
+  Jac<F> P;
+  load_coord(P.x, a, 0, idx, ld);
+  load_coord(P.y, a, 1, idx, ld);
+  load_coord(P.z, a, 2, idx, ld);
+  return P;
+}
+
+template <class F>
+__device__ __forceinline__ void store_point(const OutArrs& a, size_t idx, size_t ld, const Jac<F>& P) {
+  store_coord(a, 0, idx, ld, P.x);
+  store_coord(a, 1, idx, ld, P.y);
+  store_coord(a, 2, idx, ld, P.z);
 }
 
 }  // namespace zksc

@@ -1,5 +1,6 @@
 from .prove import Proof, ProverContext
-from .setup import ProvingKey, VerifyingKey
+from .setup import ProvingKey, VerifyingKey, setup
 from .verify import verify
 
-__all__ = ["Proof", "ProverContext", "ProvingKey", "VerifyingKey", "verify"]
+__all__ = ["Proof", "ProverContext", "ProvingKey", "VerifyingKey", "setup",
+           "verify"]

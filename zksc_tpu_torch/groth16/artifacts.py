@@ -1,10 +1,12 @@
-"""Loading proving/verifying keys from the local artifact store.
+"""Proving/verifying key (de)serialization for the local artifact store.
 
-Keys are stored under artifacts/<algorithm>/ by the JAX package
-(``pk.npz`` limb arrays, ``pk_meta.json``, ``vk.json``) with the circuit
-digest pinned; loading checks the digest against the freshly compiled
-circuit before use. ``proving_key_from_numpy`` is the one conversion from
-the JAX package's key (numpy limb arrays) to this port's ProvingKey.
+A key directory holds ``pk.npz`` (uint32 limb arrays, G2 folded),
+``pk_meta.json`` and ``vk.json`` with the circuit digest pinned, in the
+JAX package's format: ``save_keys`` writes what its ``load_keys`` reads and
+the other way round. Loading checks the digest against the freshly compiled
+circuit before use. ``proving_key_from_numpy`` converts numpy limb arrays
+(``pk.npz``, or a key of the JAX package in memory) to this port's
+ProvingKey.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 from ..ops.ec import JacPoint
 from .setup import ProvingKey, VerifyingKey
+
+ARTIFACT_VERSION = 1
 
 _QUERIES = (("a", "a_query", False), ("b1", "b_g1_query", False),
             ("b2", "b_g2_query", True), ("c", "c_query", False),
@@ -37,6 +41,16 @@ def _jac_from_np(d, prefix: str, g2: bool, device) -> JacPoint:
             axis=-1), device)
         return JacPoint(fold("x0", "x1"), fold("y0", "y1"), fold("z0", "z1"))
     return JacPoint(*(_tensor(d[prefix + k], device) for k in "xyz"))
+
+
+def _pt_json(p):
+    return None if p is None else [str(p[0]), str(p[1])]
+
+
+def _pt2_json(p):
+    if p is None:
+        return None
+    return [[str(p[0][0]), str(p[0][1])], [str(p[1][0]), str(p[1][1])]]
 
 
 def _pt_from_json(j):
@@ -71,6 +85,43 @@ def proving_key_from_numpy(arrays: dict, meta: dict, device) -> ProvingKey:
         digest=meta.get("digest", ""),
         **queries,
     )
+
+
+def save_keys(dirpath: str, pk: ProvingKey, vk: VerifyingKey):
+    """Write pk.npz, pk_meta.json and vk.json into `dirpath`."""
+    os.makedirs(dirpath, exist_ok=True)
+    arrays = {}
+    for name, attr, _ in _QUERIES:
+        for k, a in zip("xyz", getattr(pk, attr)):
+            arrays[f"{name}_{k}"] = a.cpu().numpy().astype(np.uint32)
+    np.savez_compressed(os.path.join(dirpath, "pk.npz"), **arrays)
+    meta = {
+        "version": ARTIFACT_VERSION,
+        "digest": pk.digest,
+        "n_public": pk.n_public,
+        "n_wires": pk.n_wires,
+        "domain_n": pk.domain_n,
+        "alpha_g1": _pt_json(pk.alpha_g1),
+        "beta_g1": _pt_json(pk.beta_g1),
+        "delta_g1": _pt_json(pk.delta_g1),
+        "beta_g2": _pt2_json(pk.beta_g2),
+        "delta_g2": _pt2_json(pk.delta_g2),
+    }
+    with open(os.path.join(dirpath, "pk_meta.json"), "w") as f:
+        json.dump(meta, f)
+    vk_json = {
+        "version": ARTIFACT_VERSION,
+        "digest": vk.digest,
+        "protocol": "groth16",
+        "curve": "bn128",
+        "vk_alpha_1": _pt_json(vk.alpha_g1),
+        "vk_beta_2": _pt2_json(vk.beta_g2),
+        "vk_gamma_2": _pt2_json(vk.gamma_g2),
+        "vk_delta_2": _pt2_json(vk.delta_g2),
+        "IC": [_pt_json(p) for p in vk.ic],
+    }
+    with open(os.path.join(dirpath, "vk.json"), "w") as f:
+        json.dump(vk_json, f)
 
 
 def load_keys(dirpath: str, expected_digest: str | None = None, device=None):

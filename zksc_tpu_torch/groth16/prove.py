@@ -5,13 +5,12 @@ Pipeline (the JAX package's ``groth16/prove.py``):
   1. sparse A/B/C constraint evaluation: gather + per-limb segment sum
      (lazy int64 accumulation, then one Montgomery wide-reduce per element)
   2. H(x) quotient via coset NTT (ops/ntt.py, bit-reversal-free pipeline)
-  3. five bucket MSMs (A, B1, C and H over G1, B2 over G2; ops/msm.py),
-     whose point additions run in the hand-written kernels on the GPU
+  3. five MSMs (A, B1, C and H over G1, B2 over G2): bucket MSMs
+     (ops/msm.py, point additions in the kernels K1/K2 on the GPU) for
+     m_pad >= 256 or with force_pippenger, else batched double-and-add
+     ladders (ops/ec.py:msm_double_and_add, the kernel K3 on the GPU); B2
+     on the host for m_pad <= 64
   4. final blinding combine (r, s) on the host — a handful of point ops.
-
-Unlike the JAX package, every circuit size takes the Pippenger MSMs (no
-double-and-add ladder for m_pad < 256, no host B2 MSM for m_pad <= 64):
-group arithmetic is exact, so the proof's affine points are the same.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ import torch
 
 from ..curve import bn254_host as host
 from ..device import resolve_device
-from ..fields.limb import Fr
+from ..fields.limb import Fp, Fr
 from ..ops import ec, msm
 from ..ops.ntt import NTTContext
 from ..r1cs.builder import ConstraintSystem
@@ -69,10 +68,15 @@ class ProverContext:
     """Device-side structures for one circuit: sparse matrices, NTT tables
     and the proving key (whose tables must already be on `device`)."""
 
-    def __init__(self, cs: ConstraintSystem, pk: ProvingKey, device=None):
+    def __init__(self, cs: ConstraintSystem, pk: ProvingKey, device=None,
+                 force_pippenger: bool = False):
+        """force_pippenger: use the bucket MSMs even for tiny circuits (the
+        default routes m_pad < 256 to the double-and-add ladders)."""
         self.device = resolve_device(device)
         self.cs = cs
         self.pk = pk
+        self.force_pippenger = force_pippenger
+        self._b2_host_pts = None     # lazy host copy of b_g2_query (tiny cs)
         self.timings: dict = {}
         self.ntt = NTTContext(Fr, pk.domain_n, device=self.device)
         self.m_pad = int(pk.a_query.x.shape[-1])
@@ -110,6 +114,30 @@ class ProverContext:
         norm = Fr.normalize_u32_limbs([sums[j] for j in range(Fr.L)])
         plain = Fr.mont_reduce_wide(norm)              # drops one R factor
         return Fr.to_mont(plain)                       # restore Montgomery
+
+    def _b2_msm_host(self, witness):
+        """sum_i z_i * B2_i on host Jacobian bigints (tiny circuits only —
+        see host_b2 in prove_batch). Returns host affine."""
+        g = host
+        if self._b2_host_pts is None:
+            self._b2_host_pts = ec.g2_jac_to_host_affine(
+                Fp, self.pk.b_g2_query, g.P)
+        acc = None
+        for v, Q in zip(witness, self._b2_host_pts):
+            v = int(v) % g.R
+            if Q is None or v == 0:
+                continue
+            acc = g.jac_add_host(acc, g.jac_mul_host(Q, v, g2=True), g2=True)
+        return g.jac_to_affine_host(acc, g2=True)
+
+    def witness_to_device(self, witness: np.ndarray):
+        """One host witness [n_wires] -> (z_mont [L, m_pad], z_bits
+        [n_bits, m_pad], n_bits). The ladder length adapts to the widest
+        witness value (40, 64, 128 or 254 bits): cipher circuits keep every
+        wire below 2^34."""
+        z_mont, z_plain, n_bits = self._witnesses_to_device([witness])
+        z_plain = z_plain[:, 0]
+        return z_mont[:, 0], ec.scalars_to_bits(Fr, z_plain, n_bits), n_bits
 
     def _h_core(self, z_mont_1):
         """One proof's quotient: z_mont [L, m_pad] -> h [L, n] plain limbs
@@ -161,22 +189,53 @@ class ProverContext:
             priv_plain = torch.nn.functional.pad(
                 priv_plain, (0, self.c_pad - priv_plain.shape[2]))
 
-        # all five MSMs launch before any host read-back: only the affine
-        # conversions below synchronise
-        a_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.a_query, z_plain, nb)
-        b1_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.b_g1_query, z_plain,
-                                          nb)
-        b2_dev = msm.msm_pippenger_device(ec.G2_OPS, pk.b_g2_query, z_plain,
-                                          nb)
-        c_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.c_query, priv_plain,
-                                         nb)
-        h_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.h_query, h_plain, 254)
-        mark()
-        a_pts = msm.msm_to_host_affine(ec.G1_OPS, a_dev, k)
-        b1_pts = msm.msm_to_host_affine(ec.G1_OPS, b1_dev, k)
-        b2_pts = msm.msm_to_host_affine(ec.G2_OPS, b2_dev, k)
-        c_pts = msm.msm_to_host_affine(ec.G1_OPS, c_dev, k)
-        h_pts = msm.msm_to_host_affine(ec.G1_OPS, h_dev, k)
+        # B2 on the host for tiny circuits: a <= 64-point host Jacobian MSM
+        # (exact group math, identical proofs either way)
+        host_b2 = self.m_pad <= 64
+        if host_b2:
+            b2_pts = [self._b2_msm_host(w) for w in witnesses]
+
+        if self.m_pad >= 256 or self.force_pippenger:
+            # bucket MSMs; all launch before any host read-back: only the
+            # affine conversions below synchronise
+            a_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.a_query, z_plain, nb)
+            b1_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.b_g1_query,
+                                              z_plain, nb)
+            if not host_b2:
+                b2_dev = msm.msm_pippenger_device(ec.G2_OPS, pk.b_g2_query,
+                                                  z_plain, nb)
+            c_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.c_query,
+                                             priv_plain, nb)
+            h_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.h_query, h_plain,
+                                             254)
+            mark()
+            a_pts = msm.msm_to_host_affine(ec.G1_OPS, a_dev, k)
+            b1_pts = msm.msm_to_host_affine(ec.G1_OPS, b1_dev, k)
+            if not host_b2:
+                b2_pts = msm.msm_to_host_affine(ec.G2_OPS, b2_dev, k)
+            c_pts = msm.msm_to_host_affine(ec.G1_OPS, c_dev, k)
+            h_pts = msm.msm_to_host_affine(ec.G1_OPS, h_dev, k)
+        else:
+            # tiny circuits: batched double-and-add ladders, the proof axis
+            # folded into the lanes and reduced per segment
+            z_bits = ec.scalars_to_bits(Fr, z_plain, nb)
+            priv_bits = ec.scalars_to_bits(Fr, priv_plain, nb)
+            h_bits = ec.scalars_to_bits(Fr, h_plain, 254)
+            a_msm = ec.msm_double_and_add(ec.G1_OPS, pk.a_query, z_bits, nb)
+            b1_msm = ec.msm_double_and_add(ec.G1_OPS, pk.b_g1_query, z_bits,
+                                           nb)
+            if not host_b2:
+                b2_msm = ec.msm_double_and_add(ec.G2_OPS, pk.b_g2_query,
+                                               z_bits, nb)
+            c_msm = ec.msm_double_and_add(ec.G1_OPS, pk.c_query, priv_bits, nb)
+            h_msm = ec.msm_double_and_add(ec.G1_OPS, pk.h_query, h_bits, 254)
+            mark()
+            a_pts = ec.g1_jac_to_host_affine(Fp, a_msm, host.P)[:k]
+            b1_pts = ec.g1_jac_to_host_affine(Fp, b1_msm, host.P)[:k]
+            if not host_b2:
+                b2_pts = ec.g2_jac_to_host_affine(Fp, b2_msm, host.P)[:k]
+            c_pts = ec.g1_jac_to_host_affine(Fp, c_msm, host.P)[:k]
+            h_pts = ec.g1_jac_to_host_affine(Fp, h_msm, host.P)[:k]
 
         proofs = []
         g = host

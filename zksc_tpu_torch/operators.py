@@ -1,9 +1,9 @@
 """Engine operators: the Groth16 prover/verifier for one algorithm.
 
-Ported from the JAX package's ``operators.py`` for the chacha20 statement
-under the "groth16" engine. The other statements (AES, TOPRF), the STARK
-engines and the multi-device mesh are not ported yet; asking for them
-raises.
+Ported from the JAX package's ``operators.py`` for the chacha20,
+aes-128-ctr and aes-256-ctr statements under the "groth16" engine. The
+TOPRF statements, the STARK engines and the multi-device mesh are not
+ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -12,10 +12,11 @@ import time
 
 import numpy as np
 
-from .api import ZKProofInput
+from .api import PORTED_ALGORITHMS, ZKProofInput
 from .config import CONFIG
 from .device import resolve_device
 from .r1cs import check_witness, compile_circuit, generate_witness
+from .r1cs.circuits import aes as aes_circuit
 from .r1cs.circuits import chacha20 as chacha_circuit
 
 ARTIFACT_ROOT = os.environ.get(
@@ -28,16 +29,23 @@ class CircuitSpec:
     """Statement registry entry: circuit definition + witness assembly."""
 
     def __init__(self, algorithm: str):
-        if algorithm != "chacha20":
-            raise ValueError(
-                f"algorithm {algorithm!r} is not ported yet (only chacha20)")
+        if algorithm not in PORTED_ALGORITHMS:
+            raise ValueError(f"algorithm {algorithm!r} is not ported yet "
+                             f"({', '.join(PORTED_ALGORITHMS)})")
         self.algorithm = algorithm
         cfg = CONFIG[algorithm]
         self.blocks = cfg.blocks_per_chunk
-        self.module = chacha_circuit
-        self.define = chacha_circuit.make_define(self.blocks)
-        self.pub_layout = chacha_circuit.public_layout(self.blocks)
-        self.priv_layout = chacha_circuit.private_layout(self.blocks)
+        if algorithm == "chacha20":
+            self.module = chacha_circuit
+            self.define = chacha_circuit.make_define(self.blocks)
+            self.pub_layout = chacha_circuit.public_layout(self.blocks)
+            self.priv_layout = chacha_circuit.private_layout(self.blocks)
+        else:
+            key_bits = cfg.key_size_bytes * 8
+            self.module = aes_circuit
+            self.define = aes_circuit.make_define(self.blocks, key_bits)
+            self.pub_layout = aes_circuit.public_layout(self.blocks)
+            self.priv_layout = aes_circuit.private_layout(self.blocks, key_bits)
         self._cs = None
 
     @property
@@ -60,39 +68,63 @@ class CircuitSpec:
 
 
 class Groth16Operator:
-    """Groth16 prove/verify for one algorithm on `device` (default "cuda"),
-    with keys from the local artifact store (the circuit digest pinned)."""
+    """Groth16 prove/verify for one algorithm on `device` (default "cuda").
+
+    Keys come from `artifact_dir` (default artifacts/<algorithm>) when it
+    holds a pk.npz, else from the port's key store
+    (zksc_tpu_torch/build/artifacts/<algorithm>, what keygen writes). With
+    neither, and `allow_setup`, the trusted setup runs on the device and its
+    keys are saved into the key store, never under artifacts/. The circuit
+    digest is pinned on every load."""
 
     def __init__(self, algorithm: str, artifact_dir: str | None = None,
-                 device=None):
+                 allow_setup: bool = True, device=None):
+        from .keygen import KEY_STORE
         self.device = resolve_device(device)
         self.spec = CircuitSpec(algorithm)
         self.algorithm = algorithm
         self._dir = artifact_dir or os.path.join(ARTIFACT_ROOT, algorithm)
+        self._store = os.path.join(KEY_STORE, algorithm)
+        self._allow_setup = allow_setup
         self._ctx = None
         self._vk = None
         self.timings: dict = {}
 
+    def _key_dir(self) -> str | None:
+        """The directory whose pk.npz the prover loads, if any."""
+        for d in (self._dir, self._store):
+            if os.path.exists(os.path.join(d, "pk.npz")):
+                return d
+        return None
+
     def _ensure_keys(self):
         if self._ctx is not None:
             return
-        from .groth16 import ProverContext, artifacts as art
-        if not os.path.exists(os.path.join(self._dir, "pk_meta.json")):
-            raise FileNotFoundError(
-                f"no artifacts for {self.algorithm} under {self._dir} "
-                "(the trusted setup is not ported yet)")
+        from .groth16 import ProverContext, artifacts as art, setup
         cs = self.spec.cs
-        pk, vk = art.load_keys(self._dir, expected_digest=cs.digest(),
-                               device=self.device)
+        d = self._key_dir()
+        if d is not None:
+            pk, vk = art.load_keys(d, expected_digest=cs.digest(),
+                                   device=self.device)
+        elif self._allow_setup:
+            pk, vk = setup(cs, device=self.device)
+            art.save_keys(self._store, pk, vk)
+        else:
+            raise FileNotFoundError(
+                f"no proving key for {self.algorithm} under {self._dir} or "
+                f"{self._store}, and setup disabled")
         self._ctx = ProverContext(cs, pk, device=self.device)
         self._vk = vk
 
     def ensure_vk(self):
+        """The verifying key of the proving key in use; without one, the
+        vk.json of `artifact_dir` (a key whose pk.npz is not here)."""
         if self._vk is None:
             from .groth16 import artifacts as art
-            if os.path.exists(os.path.join(self._dir, "vk.json")):
+            d = self._key_dir() or self._dir
+            if os.path.exists(os.path.join(d, "vk.json")):
                 self._vk = art.load_vk(
-                    self._dir, expected_digest=self.spec.cs.digest())
+                    d, expected_digest=self.spec.cs.digest())
             else:
                 self._ensure_keys()
         return self._vk

@@ -1,8 +1,11 @@
-"""ChaCha20 on the host (numpy), for the API's local decrypt.
+"""ChaCha20 and AES-128/256-CTR on the host (numpy), for the API's local
+decrypt and the AES circuit's tables.
 
-Only the numpy twin of the JAX package's ``ops/ciphers.py`` (RFC 7539
-block function and CTR encrypt) is ported in this slice: the prover needs
-the plaintext of one 128-byte chunk, which is tiny host work.
+The numpy twins of the JAX package's ``ops/ciphers.py`` (RFC 7539 ChaCha20,
+FIPS 197 AES with its S-box, round constants, GF(2^8) inverse table and key
+schedule, CTR mode: IV = 12-byte nonce || 4-byte big-endian counter). The
+prover needs the plaintext of one chunk (128 or 80 bytes), which is tiny
+host work; the device-batched ciphers are not ported.
 """
 from __future__ import annotations
 
@@ -59,4 +62,125 @@ def chacha20_encrypt(key: bytes, nonce: bytes, counter: int, data: bytes) -> byt
                                   np.broadcast_to(nw, (n_blocks, 3)), ctrs)
     ks = np.stack([(ks_words >> (8 * i)) & 0xFF for i in range(4)],
                   axis=-1).astype(np.uint8).reshape(-1)[: len(data)]
+    return (np.frombuffer(data, np.uint8) ^ ks).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# AES-128 / AES-256 (CTR mode)
+# ---------------------------------------------------------------------------
+
+def _build_aes_sbox() -> np.ndarray:
+    """Compute the AES S-box from GF(2^8) inversion + affine map (FIPS 197)."""
+    # multiplicative inverse table via exp/log over generator 3
+    exp = np.zeros(512, dtype=np.uint16)
+    log = np.zeros(256, dtype=np.uint16)
+    x = 1
+    for i in range(255):
+        exp[i] = x
+        log[x] = i
+        # multiply by generator 0x03 = x * 2 ^ x
+        x2 = ((x << 1) ^ (0x11B if x & 0x80 else 0)) & 0xFF
+        x = x2 ^ x
+    for i in range(255, 512):
+        exp[i] = exp[i - 255]
+    inv = np.zeros(256, dtype=np.uint8)
+    for a in range(1, 256):
+        inv[a] = exp[255 - log[a]]
+    sbox = np.zeros(256, dtype=np.uint8)
+    for a in range(256):
+        b = int(inv[a])
+        s = 0x63
+        for i in range(8):
+            bit = ((b >> i) & 1) ^ ((b >> ((i + 4) % 8)) & 1) ^ \
+                  ((b >> ((i + 5) % 8)) & 1) ^ ((b >> ((i + 6) % 8)) & 1) ^ \
+                  ((b >> ((i + 7) % 8)) & 1)
+            s ^= bit << i
+        sbox[a] = s
+    return sbox
+
+
+AES_SBOX = _build_aes_sbox()
+AES_INV_SBOX = np.zeros(256, dtype=np.uint8)
+AES_INV_SBOX[AES_SBOX] = np.arange(256, dtype=np.uint8)
+AES_RCON = np.array([0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40, 0x80, 0x1B, 0x36],
+                    dtype=np.uint8)
+# GF(2^8) multiplicative inverse table (0 -> 0), used by the AES R1CS circuit's
+# S-box hint (sound inverse-based S-box instead of the reference circom's
+# unconstrained T-table lookups — see SURVEY.md §2.2).
+_e = np.zeros(256, dtype=np.uint8)
+for _a in range(1, 256):
+    for _b in range(1, 256):
+        _p, _x, _y = 0, _a, _b
+        # carryless multiply then reduce — small one-time host loop
+        while _y:
+            if _y & 1:
+                _p ^= _x
+            _y >>= 1
+            _x <<= 1
+            if _x & 0x100:
+                _x ^= 0x11B
+        if _p == 1:
+            _e[_a] = _b
+            break
+AES_GF_INV = _e
+
+
+def aes_expand_key(key: np.ndarray) -> np.ndarray:
+    """Host key expansion: key uint8[16 or 32] -> round keys uint8[R+1, 16]
+    (R=10 for AES-128, 14 for AES-256)."""
+    key = np.asarray(key, dtype=np.uint8)
+    nk = len(key) // 4
+    rounds = {4: 10, 8: 14}[nk]
+    words = [key[4 * i: 4 * i + 4].copy() for i in range(nk)]
+    for i in range(nk, 4 * (rounds + 1)):
+        temp = words[i - 1].copy()
+        if i % nk == 0:
+            temp = np.roll(temp, -1)
+            temp = AES_SBOX[temp]
+            temp[0] ^= AES_RCON[i // nk - 1]
+        elif nk > 6 and i % nk == 4:
+            temp = AES_SBOX[temp]
+        words.append(words[i - nk] ^ temp)
+    return np.stack(words).reshape(rounds + 1, 16)
+
+
+def _aes_encrypt_blocks_np(blocks: np.ndarray, round_keys: np.ndarray) -> np.ndarray:
+    """Pure-numpy twin of aes_encrypt_blocks for host-side use."""
+    shift_idx = np.array([0, 5, 10, 15, 4, 9, 14, 3, 8, 13, 2, 7, 12, 1, 6, 11])
+    st = blocks.astype(np.uint32)
+    rk = round_keys.astype(np.uint32)
+    n_rounds = rk.shape[0] - 1
+    st = st ^ rk[0]
+
+    def xt(x):
+        return ((x << 1) ^ np.where((x & 0x80) != 0, 0x1B, 0)) & 0xFF
+
+    for r in range(1, n_rounds + 1):
+        st = AES_SBOX[st].astype(np.uint32)
+        st = st[:, shift_idx]
+        if r != n_rounds:
+            cols = st.reshape(-1, 4, 4)
+            a0, a1, a2, a3 = cols[:, :, 0], cols[:, :, 1], cols[:, :, 2], cols[:, :, 3]
+            r0 = xt(a0) ^ (xt(a1) ^ a1) ^ a2 ^ a3
+            r1 = a0 ^ xt(a1) ^ (xt(a2) ^ a2) ^ a3
+            r2 = a0 ^ a1 ^ xt(a2) ^ (xt(a3) ^ a3)
+            r3 = (xt(a0) ^ a0) ^ a1 ^ a2 ^ xt(a3)
+            st = np.stack([r0, r1, r2, r3], axis=2).reshape(-1, 16)
+        st = st ^ rk[r]
+    return st.astype(np.uint8)
+
+
+def aes_ctr_encrypt(key: bytes, nonce: bytes, counter: int, data: bytes) -> bytes:
+    """Host-convenience AES-CTR over arbitrary-length data. Pure numpy."""
+    n_blocks = (len(data) + 15) // 16
+    if n_blocks == 0:
+        return b""
+    rks = aes_expand_key(np.frombuffer(key, np.uint8))
+    ctrs = np.arange(counter, counter + n_blocks, dtype=np.uint32)
+    ivs = np.concatenate([
+        np.broadcast_to(np.frombuffer(nonce, np.uint8), (n_blocks, 12)),
+        np.stack([(ctrs >> 24) & 0xFF, (ctrs >> 16) & 0xFF,
+                  (ctrs >> 8) & 0xFF, ctrs & 0xFF], axis=1).astype(np.uint8),
+    ], axis=1)
+    ks = _aes_encrypt_blocks_np(ivs, rks).reshape(-1)[: len(data)]
     return (np.frombuffer(data, np.uint8) ^ ks).tobytes()

@@ -12,7 +12,10 @@ match limb for limb:
     c0 in the first N lanes and c1 in the last N.
 
 These are the plain versions: the bucket MSM's point additions on a CUDA
-tensor go through the hand-written kernels of ``ops/ec_kernels.py``.
+tensor go through the hand-written kernels of ``ops/ec_kernels.py``. The
+double-and-add ladders (msm_double_and_add, scale_points) call the ladder
+kernel's wrapper, ``ops/msm_kernels.py:ladder``, which takes the plain
+ladder (_batch_scale) on a CPU tensor.
 
 Curve: BN254 y^2 = x^3 + 3 (a=0), G2 twist y^2 = x^3 + 3/(9+i).
 """
@@ -212,7 +215,117 @@ def scalars_to_bits(F: LimbField, scalars_plain, n_bits: int):
                         for k in range(n_bits)]).to(torch.int32)
 
 
+# double-and-add ladders ----------------------------------------------------
+
+def _segment_reduce(fops, pts: JacPoint, seg: int) -> JacPoint:
+    """Sum of each length-`seg` run of lanes -> JacPoint [L, N/seg].
+
+    The additions and their order are those of the JAX package's
+    _segment_reduce_fori (log2(seg) rounds of pts + roll(pts, -stride),
+    segment sums read at lanes j*seg), _tree_reduce_fori and
+    _tree_reduce_rolled (seg = N): in each round lane t < stride of a
+    segment adds lane t + stride, which is the halving tree written here."""
+    assert seg & (seg - 1) == 0
+    while seg > 1:
+        half = seg // 2
+
+        def part(lo):
+            return lambda a: a.reshape(a.shape[0], -1, seg)[
+                :, :, lo:lo + half].reshape(a.shape[0], -1)
+        pts = jac_add(fops, JacPoint(*(fops.lane_map(part(0), c) for c in pts)),
+                      JacPoint(*(fops.lane_map(part(half), c) for c in pts)))
+        seg = half
+    return pts
+
+
+def jac_tree_reduce(fops, pts: JacPoint) -> JacPoint:
+    """Reduce a batch of points to one by pairwise addition (log2 N batched
+    adds). N must be a power of two (pad with identity)."""
+    n = fops.lane_width(pts.x)
+    assert n & (n - 1) == 0, "pad batch to a power of two"
+    return _segment_reduce(fops, pts, n)
+
+
+def _tile(fops, P: JacPoint, k: int) -> JacPoint:
+    return JacPoint(*(fops.lane_map(lambda a: a.repeat(1, k), c) for c in P))
+
+
+def msm_double_and_add(fops, points: JacPoint, scalar_bits,
+                       n_bits: int) -> JacPoint:
+    """Batched MSM sum_i s_i * P_i over a shared point table.
+
+    points: JacPoint over m lanes (m a power of two). scalar_bits: int
+    [n_bits, m] for a single MSM (returns a width-1 point) or [n_bits, k, m]
+    for k independent scalar sets (returns a width-k point; the proof axis
+    is folded into the lane axis). The ladder and the per-segment reduction
+    are K3 (ops/msm_kernels.py:ladder). Its complete addition gives the
+    reference's incomplete _msm_step result for every scalar below the group
+    order: acc never equals +-P_i where the bit is set."""
+    from . import msm_kernels
+    bits3 = scalar_bits[:, None, :] if scalar_bits.dim() == 2 else scalar_bits
+    k, m = int(bits3.shape[1]), fops.lane_width(points.x)
+    bits2 = bits3.reshape(bits3.shape[0], k * m)
+    pts = _tile(fops, points, k) if k > 1 else points
+    return msm_kernels.ladder(fops, pts, bits2.to(torch.int32).contiguous(),
+                              n_bits, seg=m)
+
+
+def _batch_scale(fops, pts: JacPoint, n_bits: int, bits) -> JacPoint:
+    """acc_i = s_i * P_i over every lane (no reduction): MSB-first
+    double-and-add with the complete addition, the loop body of the JAX
+    package's _batch_scale_jit and of pallas_msm._ladder_tile_kernel.
+    bits: int [n_bits] (one scalar shared by every lane) or [n_bits, N],
+    LSB first."""
+    n = fops.lane_width(pts.x)
+    acc = jac_identity_batch(fops, (n,), device=pts.x.device)
+    for k in range(n_bits - 1, -1, -1):
+        acc = jac_double(fops, acc)
+        summed = jac_add(fops, acc, pts)
+        acc = _sel(fops, (bits[k] != 0).expand(n), summed, acc)
+    return acc
+
+
+def scale_points(fops, pts: JacPoint, scalar: int, n_bits: int = 254) -> JacPoint:
+    """Multiply EVERY lane of a point batch by the same host-known scalar
+    (the ceremony's rerandomisation of h_query and c_query): K3 unreduced,
+    with one shared bit vector."""
+    from . import msm_kernels
+    assert 0 <= scalar < (1 << n_bits), "scalar exceeds the ladder width"
+    bits = torch.tensor([(scalar >> i) & 1 for i in range(n_bits)],
+                        dtype=torch.int32, device=pts.x.device)
+    return msm_kernels.ladder(fops, pts, bits, n_bits)
+
+
 # host-side helpers --------------------------------------------------------
+
+def g1_points_to_device(F: LimbField, pts: list, device=None) -> JacPoint:
+    """Host affine G1 points (int tuples / None) -> JacPoint, Z = 1 (the
+    identity as (0, 1, 0))."""
+    xs, ys, zs = [], [], []
+    for p in pts:
+        if p is None:
+            xs.append(0); ys.append(1); zs.append(0)
+        else:
+            xs.append(p[0]); ys.append(p[1]); zs.append(1)
+    return JacPoint(F.to_device(xs, device=device),
+                    F.to_device(ys, device=device),
+                    F.to_device(zs, device=device))
+
+
+def g2_points_to_device(F: LimbField, pts: list, device=None) -> JacPoint:
+    """Host affine G2 points -> folded JacPoint ([L, 2N], c0 | c1)."""
+    xs0, xs1, ys0, ys1, zs0 = [], [], [], [], []
+    for p in pts:
+        if p is None:
+            xs0.append(0); xs1.append(0); ys0.append(1); ys1.append(0); zs0.append(0)
+        else:
+            xs0.append(p[0][0]); xs1.append(p[0][1])
+            ys0.append(p[1][0]); ys1.append(p[1][1]); zs0.append(1)
+    zeros = [0] * len(pts)
+    return JacPoint(F.to_device(xs0 + xs1, device=device),
+                    F.to_device(ys0 + ys1, device=device),
+                    F.to_device(zs0 + zeros, device=device))
+
 
 def g1_jac_to_host_affine(F: LimbField, pt: JacPoint, p_mod: int) -> list:
     """Jacobian G1 tensors -> host affine int tuples (None for identity)."""

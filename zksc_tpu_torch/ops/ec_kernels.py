@@ -4,10 +4,9 @@
   - jac_add_n  (K2): replaces zksc_tpu/ops/pallas_ec.py:jac_add_n.
 
 Sources: ``csrc/ec_kernels.cu`` (kernels, C entry points) and
-``csrc/bn254.cuh`` (field arithmetic). They are compiled for sm_90a by ONE
-plain ``nvcc`` call into ``build/libzksc_ec.so`` at first use (again when a
-source is newer than the library) and loaded with ctypes: no PyTorch header,
-no torch.utils.cpp_extension, so the build takes seconds.
+``csrc/bn254.cuh`` (field arithmetic), compiled for sm_90a by one plain
+``nvcc`` call into ``build/libzksc_ec.so`` at first use (ops/cuda_build.py)
+and loaded with ctypes.
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version in this
 module (built on ops/ec.py); a CUDA tensor goes to the kernel, which
@@ -19,29 +18,13 @@ raises. There is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
-from . import ec
+from . import cuda_build, ec
 from .ec import JacPoint
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("ec_kernels.cu", "bn254.cuh")
-LIB_PATH = os.path.join(BUILD_DIR, "libzksc_ec.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-
 LAUNCHES = {"chunk_scan": 0, "jac_add_n": 0}
-
-_LOCK = threading.Lock()
-_LIB = None
 
 
 def reset_launch_counts():
@@ -49,49 +32,16 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def build(verbose: bool = False) -> float:
-    """Compile csrc/ into build/libzksc_ec.so if it is missing or older than
-    a source. Returns the seconds spent in nvcc (0.0 if up to date)."""
-    srcs = [os.path.join(CSRC, s) for s in SOURCES]
-    if os.path.exists(LIB_PATH) and all(
-            os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in srcs):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB_PATH + f".{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, srcs[0]]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.time() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, LIB_PATH)
-    return dt
+def _declare(lib):
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.zksc_chunk_scan.restype = ci
+    lib.zksc_chunk_scan.argtypes = [ci, ci] + [vp] * 18 + [ci, cll, vp]
+    lib.zksc_jac_add_n.restype = ci
+    lib.zksc_jac_add_n.argtypes = [ci, ci] + [vp] * 18 + [cll, cll, vp]
 
 
 def _lib():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            build()
-            lib = ctypes.CDLL(LIB_PATH)
-            vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.zksc_chunk_scan.restype = ci
-            lib.zksc_chunk_scan.argtypes = [ci, ci] + [vp] * 18 + [ci, cll, vp]
-            lib.zksc_jac_add_n.restype = ci
-            lib.zksc_jac_add_n.argtypes = [ci, ci] + [vp] * 18 + [cll, cll, vp]
-            _LIB = lib
-        return _LIB
+    return cuda_build.load("ec", _declare)
 
 
 def _is_fp2(fops) -> bool:

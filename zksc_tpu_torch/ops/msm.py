@@ -20,6 +20,9 @@ boundaries. So per window:
 
   MSM = sum_w 2^{c*w} * S_w      (host Horner combine, msm_to_host_affine)
 
+The trusted setup's fixed-base products (batch_scalar_mul_fixed_base) are
+a table gather plus one incomplete add (K2) per 8-bit window.
+
 The prefix scan and the bucket reduce use COMPLETE additions: P == Q occurs
 structurally there (every window's segment holds the same point multiset,
 and 0/1 witnesses make whole digit runs identical); an incomplete formula
@@ -33,9 +36,11 @@ tile-multiple condition: every call takes the kernel.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
-from ..fields.limb import W as LIMB_W
+from ..fields.limb import Fp, Fr, W as LIMB_W
 from . import ec, ec_kernels
 from .ec import JacPoint
 
@@ -209,6 +214,81 @@ def default_window_bits(n_bits: int, n: int) -> int:
         if best_cost is None or cost < best_cost:
             best, best_cost = c, cost
     return best
+
+
+def _fixed_base_combine(fops, table: JacPoint, digits, c: int) -> JacPoint:
+    """result_i = sum_w table[w * 2^c + digits[w, i]]: one gather and one
+    incomplete add (K2) per window."""
+    W, n = digits.shape
+    acc = ec.jac_identity_batch(fops, (n,), device=digits.device)
+    for w in range(W):
+        idx = w * (1 << c) + digits[w]
+        pt = _jp(fops, lambda a: a[:, idx], table)
+        acc = _add_wide(fops, acc, pt, complete=False)
+    return acc
+
+
+_FB_TABLES: dict = {}
+
+
+def _fixed_base_table(base, g2: bool, c: int, n_bits: int, device):
+    """Host-precomputed window table: entry w*2^c + d = d * 2^(c*w) * base
+    (cached per base, window and device)."""
+    from ..curve import bn254_host as host
+    key = (base, g2, c, n_bits, str(device))
+    if key in _FB_TABLES:
+        return _FB_TABLES[key]
+    add = host.g2_add if g2 else host.g1_add
+    W = -(-n_bits // c)
+    rows = []
+    cur = base
+    for _ in range(W):
+        row = [None]
+        acc = None
+        for _ in range((1 << c) - 1):
+            acc = add(acc, cur)
+            row.append(acc)
+        rows.extend(row)
+        for _ in range(c):
+            cur = add(cur, cur)
+    conv = ec.g2_points_to_device if g2 else ec.g1_points_to_device
+    dev = conv(Fp, rows, device=device)
+    _FB_TABLES[key] = dev
+    return dev
+
+
+def batch_scalar_mul_fixed_base(scalars: list, base, g2: bool = False,
+                                c: int = 8, n_bits: int = 254, device=None,
+                                timings: dict | None = None) -> list:
+    """[s_i * base] for many scalars against ONE fixed base (the trusted
+    setup's hot loop): ceil(n_bits/c) table gathers and adds per lane
+    instead of a 254-step ladder. Returns host affine points (None =
+    identity). timings: optional dict whose fb_table_s, fb_combine_s and
+    fb_affine_s grow by this call's seconds (the combine synchronised)."""
+    from ..curve import bn254_host as host
+    n = len(scalars)
+    if n == 0:
+        return []
+    t0 = time.perf_counter()
+    npad = max(1, 1 << (n - 1).bit_length())
+    sp = Fr.to_device(list(scalars) + [0] * (npad - n), mont=False,
+                      device=device)
+    W = -(-n_bits // c)
+    digits = scalars_to_digits(sp, c, W)
+    table = _fixed_base_table(base, g2, c, n_bits, sp.device)
+    t1 = time.perf_counter()
+    fops = ec.G2_OPS if g2 else ec.G1_OPS
+    acc = _fixed_base_combine(fops, table, digits, c)
+    if timings is not None and acc.x.device.type == "cuda":
+        torch.cuda.synchronize(acc.x.device)
+    t2 = time.perf_counter()
+    conv = ec.g2_jac_to_host_affine if g2 else ec.g1_jac_to_host_affine
+    out = conv(fops.F, acc, host.P)[:n]
+    if timings is not None:
+        for k, v in (("fb_table_s", t1 - t0), ("fb_combine_s", t2 - t1),
+                     ("fb_affine_s", time.perf_counter() - t2)):
+            timings[k] = timings.get(k, 0.0) + v
+    return out
 
 
 class MsmPending:

@@ -1,3 +1,3 @@
-from . import chacha20
+from . import aes, chacha20
 
-__all__ = ["chacha20"]
+__all__ = ["aes", "chacha20"]
