@@ -45,12 +45,17 @@ def _arr(vals: list) -> np.ndarray:
 @pytest.fixture(scope="module")
 def raw_points():
     """Montgomery coordinate ints: G1 from a_query, G2 (c0, c1) from the
-    folded b2 query; 64 lanes each."""
+    folded b2 query; the first 64 lanes of each that are not the identity
+    (the key's points are affine: Z = Montgomery one)."""
     with np.load(PK) as d:
-        g1 = [_ints(d["a_" + k][:, :64]) for k in "xyz"]
+        live = np.flatnonzero((d["a_z"] != 0).any(0))[:64]
+        g1 = [_ints(d["a_" + k][:, live]) for k in "xyz"]
         n2 = d["b2_x"].shape[1] // 2
-        g2 = [list(zip(_ints(d["b2_" + k][:, :64]),
-                       _ints(d["b2_" + k][:, n2:n2 + 64]))) for k in "xyz"]
+        z2 = d["b2_z"]
+        live2 = np.flatnonzero((z2[:, :n2] != 0).any(0)
+                               | (z2[:, n2:] != 0).any(0))[:64]
+        g2 = [list(zip(_ints(d["b2_" + k][:, live2]),
+                       _ints(d["b2_" + k][:, n2 + live2]))) for k in "xyz"]
     return g1, g2
 
 
@@ -158,31 +163,6 @@ def _scan_input(raw_points, g2):
     return _pack(lanes, g2)
 
 
-def _ts(a):
-    """position-major [L, C*S] -> step-major [S, L, C]."""
-    return a.reshape(16, C, S).permute(2, 0, 1).contiguous()
-
-
-def _fs(a):
-    return a.permute(1, 2, 0).reshape(16, C * S)
-
-
-def _split_halves(arrs, g2):
-    if not g2:
-        return list(arrs)
-    out = []
-    for a in arrs:
-        n = a.shape[-1] // 2
-        out += [a[..., :n], a[..., n:]]
-    return out
-
-
-def _fold(arrs, g2):
-    if not g2:
-        return list(arrs)
-    return [torch.cat([arrs[i], arrs[i + 1]], dim=-1) for i in (0, 2, 4)]
-
-
 def _reference_scan(g2, pts_np, inclusive):
     """(scanned position-major JacPoint, chunk totals) from the JAX package."""
     jo = _jops(g2)
@@ -207,19 +187,146 @@ def _reference_scan(g2, pts_np, inclusive):
     return jec.JacPoint(*(position_major(c) for c in range(3))), acc
 
 
+def _relayout(a, g2, src, dst):
+    """Lanes of each component between position-major (chunk * S + step)
+    and the step-major layout K1 works on (step * C + chunk)."""
+    shape = {"pm": (16, C, S), "sm": (16, S, C)}
+    halves = [a[:, :C * S], a[:, C * S:]] if g2 else [a]
+    return torch.cat([h.reshape(shape[src]).transpose(1, 2).reshape(16, C * S)
+                      for h in halves], dim=-1)
+
+
 @pytest.mark.parametrize("inclusive", [True, False])
 @pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
 def test_chunk_scan_plain(raw_points, g2, inclusive):
-    """K1's CPU dispatch (S = 16, C = 4) vs the JAX package's scan."""
+    """K1's CPU dispatch (S = 16, C = 4) on the step-major layout the MSM's
+    scan holds (lane = step * C + chunk) vs the JAX package's scan, whose
+    position-major lanes are reordered for the comparison."""
     pts_np = _scan_input(raw_points, g2)
     ref_out, ref_tot = _reference_scan(g2, pts_np, inclusive)
-    raws = _split_halves([torch.from_numpy(a.astype(np.int32))
-                          for a in pts_np], g2)
-    ys, carry = ec_kernels.chunk_scan(_tops(g2), [_ts(a) for a in raws], S,
-                                      inclusive)
-    assert all(y.shape == (S, 16, C) for y in ys)
-    _eq_pt(ref_out, _fold([_fs(y) for y in ys], g2))
-    _eq_pt(ref_tot, _fold(carry, g2))
+    pts = tec.JacPoint(*(_relayout(a, g2, "pm", "sm") for a in _tp(pts_np)))
+    ys, carry = ec_kernels.chunk_scan(_tops(g2), pts, S, inclusive)
+    assert all(y.shape == (16, (2 if g2 else 1) * C * S) for y in ys)
+    _eq_pt(ref_out, [_relayout(y, g2, "sm", "pm") for y in ys])
+    _eq_pt(ref_tot, carry)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_jac_add_n_views(raw_points, g2):
+    """K2's CPU dispatch on the views the halving reduce passes (the two
+    halves of one array; G2 as [16, 2, n] views of the folded layout)
+    equals the call on dense copies, limb for limb."""
+    from zksc_tpu_torch.ops import msm
+    Pa, Qa = _edge_batches(*raw_points, g2)[0]
+    n = 4
+    if g2:
+        whole = [np.concatenate([p[:, :n], q[:, :n], p[:, n:], q[:, n:]], -1)
+                 for p, q in zip(Pa, Qa)]
+    else:
+        whole = [np.concatenate([p, q], -1) for p, q in zip(Pa, Qa)]
+    W = _tp(whole)
+    fo = _tops(g2)
+    lo, hi = msm._lane_range(fo, W, 0, n), msm._lane_range(fo, W, n, 2 * n)
+    assert not lo.x.is_contiguous() and not hi.x.is_contiguous()
+    for complete in (True, False):
+        got = ec_kernels.jac_add_n(fo, lo, hi, complete)
+        want = ec_kernels.jac_add_n(fo, _tp(Pa), _tp(Qa), complete)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def _add_model(F, P, Q, complete: bool, g2: bool):
+    """The kernels' point add (csrc/bn254.cuh jac_add) written with the
+    port's Fp ops on Python-level lanes: the identity cases first, the
+    11-product sequence where Q.z is Montgomery one (Z2Z2 = 1, U1 = X1,
+    S1 = Y1, Z1 Z2 = Z1), the doubling where H = r = 0 (complete), and Fp2
+    products as the two threads of a lane pair compute them, the schoolbook
+    c0 = a0 b0 - a1 b1, c1 = a0 b1 + a1 b0. Each lane is one element of a
+    width-1 tensor; returns the result lanes and the count of affine adds."""
+    one = F.to_device([1])
+
+    def mul(a, b):
+        if not g2:
+            return F.mont_mul(a, b)
+        return (F.sub(F.mont_mul(a[0], b[0]), F.mont_mul(a[1], b[1])),
+                F.add(F.mont_mul(a[0], b[1]), F.mont_mul(a[1], b[0])))
+
+    def lift(op):
+        return (lambda a, b: op(a, b)) if not g2 else \
+            (lambda a, b: (op(a[0], b[0]), op(a[1], b[1])))
+    add, sub = lift(F.add), lift(F.sub)
+
+    def is_zero(a):
+        return bool(F.is_zero(a).all()) if not g2 else \
+            bool(F.is_zero(a[0]).all() and F.is_zero(a[1]).all())
+
+    def is_one(a):
+        return bool(torch.equal(a, one)) if not g2 else \
+            bool(torch.equal(a[0], one) and F.is_zero(a[1]).all())
+
+    def double(X, Y, Z):
+        A, B = mul(X, X), mul(Y, Y)
+        Z3 = mul(add(Y, Y), Z)
+        E = add(add(A, A), A)
+        C, t, Fq = mul(B, B), mul(add(X, B), add(X, B)), mul(E, E)
+        D2 = sub(sub(t, A), C)
+        D = add(D2, D2)
+        X3 = sub(Fq, add(D, D))
+        C2 = add(C, C)
+        C8 = add(add(C2, C2), add(C2, C2))
+        return X3, sub(mul(E, sub(D, X3)), C8), Z3
+
+    (X1, Y1, Z1), (X2, Y2, Z2) = P, Q
+    if is_zero(Z2):
+        return P, 0
+    if is_zero(Z1):
+        return Q, 0
+    Z1Z1 = mul(Z1, Z1)
+    U2 = mul(X2, Z1Z1)
+    S2 = mul(Y2, mul(Z1, Z1Z1))
+    affine = is_one(Z2)
+    if affine:
+        U1, S1, Z1Z2 = X1, Y1, Z1
+    else:
+        Z2Z2 = mul(Z2, Z2)
+        U1, S1, Z1Z2 = mul(X1, Z2Z2), mul(Y1, mul(Z2, Z2Z2)), mul(Z1, Z2)
+    H, r = sub(U2, U1), sub(S2, S1)
+    if complete and is_zero(H) and is_zero(r):
+        return double(X1, Y1, Z1), int(affine)
+    HH, rr = mul(H, H), mul(r, r)
+    HHH, V = mul(H, HH), mul(U1, HH)
+    X3 = sub(sub(rr, HHH), add(V, V))
+    Y3 = sub(mul(r, sub(V, X3)), mul(S1, HHH))
+    return (X3, Y3, mul(Z1Z2, H)), int(affine)
+
+
+@pytest.mark.parametrize("complete", [True, False])
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_kernel_add_model(raw_points, g2, complete):
+    """The argument the kernels rely on, made executable: the affine-Q
+    sequence and the schoolbook Fp2 split give the JAX package's
+    ec.jac_add / jac_add_incomplete limbs on the crafted edge batches,
+    with affine and Jacobian Q among them."""
+    from zksc_tpu_torch.fields.limb import Fp as F
+    ref_fn = jec.jac_add if complete else jec.jac_add_incomplete
+    n_affine = 0
+    for Pa, Qa in _edge_batches(*raw_points, g2):
+        want = ref_fn(_jops(g2), _jp(Pa), _jp(Qa))
+        tP, tQ = _tp(Pa), _tp(Qa)
+        for i in range(4):
+            def lane(pt):
+                if not g2:
+                    return tuple(a[:, i:i + 1] for a in pt)
+                return tuple((a[:, i:i + 1], a[:, 4 + i:5 + i]) for a in pt)
+            got, aff = _add_model(F, lane(tP), lane(tQ), complete, g2)
+            n_affine += aff
+            for c in range(3):
+                ref = np.asarray(want[c]).astype(np.int64)
+                exp = ref[:, i] if not g2 else np.stack([ref[:, i], ref[:, 4 + i]], -1)
+                val = got[c][:, 0] if not g2 else torch.stack(
+                    [got[c][0][:, 0], got[c][1][:, 0]], -1)
+                np.testing.assert_array_equal(exp, val.numpy().astype(np.int64))
+    assert n_affine >= 3          # the key's points are affine: the branch ran
 
 
 def test_wrappers_never_fall_back():
@@ -229,6 +336,7 @@ def test_wrappers_never_fall_back():
     meta = tec.JacPoint(*(a.to("meta") for a in P))
     with pytest.raises(ValueError):
         ec_kernels.jac_add_n(tec.G1_OPS, meta, meta, True)
-    xs = [torch.zeros((S, 16, C), dtype=torch.int32, device="meta")] * 3
+    pts = tec.jac_identity_batch(tec.G1_OPS, (S * C,))
     with pytest.raises(ValueError):
-        ec_kernels.chunk_scan(tec.G1_OPS, xs, S, True)
+        ec_kernels.chunk_scan(tec.G1_OPS,
+                              tec.JacPoint(*(a.to("meta") for a in pts)), S, True)

@@ -1,0 +1,279 @@
+"""The CUDA sources of K1, K2 and K3 (zksc_tpu_torch/csrc/), run on the CPU.
+
+No CUDA compiler exists here, so the sources are turned into plain C++ and
+built with g++: each PTX asm block becomes C++ with an explicit carry flag
+(the instructions the field core uses: mad/madc lo/hi, add/addc, sub/subc,
+with .cc), each <<<grid, block>>> launch runs its blocks one after another
+with one std::thread per CUDA thread, and __shfl_xor_sync / __syncthreads
+become barriers between those threads (a lane pair's shuffle waits for both
+threads, as the pair mask says). The wrappers' launch paths
+(ec_kernels._launch_*, msm_kernels._launch) then drive the emulated library
+on CPU tensors, and every output is held to the kernel's plain PyTorch
+version limb for limb, on crafted lanes (chip_smoke.craft: identity,
+doubling, negation, affine and Jacobian Q in one warp) at lane counts that
+leave a ragged last block and an unpaired warp tail for the two-thread G2
+instances. This checks the kernels' indexing, layouts, branches and the
+lane-pair protocol; the card's own compiler and timing are chip_smoke.py's."""
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(ROOT, "zksc_tpu_torch", "csrc")
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from zksc_tpu_torch.ops import ec, ec_kernels, msm, msm_kernels  # noqa: E402
+
+SHIM = r'''
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __device__
+#define __host__
+#define __global__
+#define __constant__
+#define __forceinline__ inline
+#define __noinline__
+#define __launch_bounds__(...)
+#define __shared__ static
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct uint3e { unsigned x, y, z; };
+inline thread_local uint3e threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline int cudaGetLastError() { return 0; }
+template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+struct BlockCtx {
+  std::unique_ptr<std::barrier<>> all;
+  std::vector<std::unique_ptr<std::barrier<>>> pairs;
+  std::vector<uint64_t> slot;
+  std::vector<char> smem;
+};
+inline thread_local BlockCtx* g_blk = nullptr;
+inline void __syncthreads() { g_blk->all->arrive_and_wait(); }
+template <class T> inline T __shfl_xor_sync(unsigned mask, T v, int lanemask) {
+  const unsigned t = threadIdx.x;
+  if (lanemask != 1 || mask != (3u << (t & 30u))) { fprintf(stderr, "unexpected shuffle\n"); abort(); }
+  auto& b = *g_blk->pairs[t / 2];
+  g_blk->slot[t] = (uint64_t)v;
+  b.arrive_and_wait();
+  T r = (T)g_blk->slot[t ^ 1u];
+  b.arrive_and_wait();
+  return r;
+}
+inline char* dyn_smem() { return g_blk->smem.data(); }
+inline size_t __cvta_generic_to_shared(const void*) { return 0; }
+inline void zk_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> body) {
+  gridDim = grid; blockDim = block;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    BlockCtx ctx;
+    ctx.all = std::make_unique<std::barrier<>>(block.x);
+    for (unsigned i = 0; i < block.x / 2; ++i) ctx.pairs.push_back(std::make_unique<std::barrier<>>(2));
+    ctx.slot.resize(block.x);
+    ctx.smem.resize(smem + 16);
+    std::vector<std::thread> th;
+    for (unsigned t = 0; t < block.x; ++t)
+      th.emplace_back([&, t, b] { threadIdx = {t, 0, 0}; blockIdx = {b, 0, 0}; g_blk = &ctx; body(); });
+    for (auto& x : th) x.join();
+  }
+}
+'''
+
+
+def _ptx_to_cpp(block: str) -> str:
+    """One asm statement's body -> C++ with an explicit carry flag."""
+    if "cp.async.ca" in block:              # a 4-byte global -> shared copy
+        return "*(smem_dst) = *(src);"
+    if "cp.async" in block:                 # commit / wait: copies are synchronous here
+        return ";"
+    parts = block.split(":")
+    tmpl = "".join(re.findall(r'"([^"]*)"', parts[0]))
+    ops = []
+    for part in parts[1:3]:
+        ops += re.findall(r'"[=+]?r"\(([^)]*)\)', part)
+    code = ["{ uint64_t cf_ = 0, t_;"]
+
+    def v(tok):
+        return (f"(uint64_t)({ops[int(tok[1:])]})" if tok.startswith("%")
+                else f"(uint64_t){tok}u")
+
+    for ins in (s.strip() for s in tmpl.replace("\\n", "").replace("\\t", "")
+                .split(";")):
+        if not ins:
+            continue
+        op, args = ins.split(None, 1)
+        args = [a.strip() for a in args.split(",")]
+        d, s = ops[int(args[0][1:])], [v(a) for a in args[1:]]
+        p = op.split(".")
+        base, cc = p[0], "cc" in p
+        if base in ("mad", "madc"):
+            prod = f"({s[0]} * {s[1]})"
+            e = (f"({prod} >> 32)" if "hi" in p else f"({prod} & 0xffffffffull)") \
+                + f" + {s[2]}" + (" + cf_" if base == "madc" else "")
+            carry = "cf_ = t_ >> 32;"
+        elif base in ("add", "addc"):
+            e = f"{s[0]} + {s[1]}" + (" + cf_" if base == "addc" else "")
+            carry = "cf_ = t_ >> 32;"
+        elif base in ("sub", "subc"):
+            e = f"{s[0]} - {s[1]}" + (" - cf_" if base == "subc" else "")
+            carry = "cf_ = t_ >> 63;"
+        else:
+            raise ValueError(f"no emulation for {ins}")
+        code.append(f"t_ = {e}; {d} = (uint32_t)t_;" + (f" {carry}" if cc else ""))
+    code.append("}")
+    return " ".join(code)
+
+
+def _translate(src: str) -> str:
+    out, i = [], 0
+    while True:
+        j = src.find("asm volatile(", i)
+        if j < 0:
+            out.append(src[i:])
+            break
+        k = src.index(");", j)
+        out += [src[i:j], _ptx_to_cpp(src[j + len("asm volatile("):k])]
+        i = k + 2
+    s = "".join(out)
+    s = re.sub(r"([\w:<>, ]+?)<<<([^>]*)>>>\(([^;]*)\);",
+               lambda m: "zk_launch(%s, [&](){ %s(%s); });" % (
+                   ", ".join(a.strip() for a in m.group(2).split(",")[:3]),
+                   m.group(1).strip(), m.group(3)), s)
+    s = s.replace("extern __shared__ uint32_t smem[];",
+                  "uint32_t* smem = (uint32_t*)dyn_smem();")
+    return s.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """(ec library, msm library) built from csrc/ with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the emulated kernels cannot be built")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    (d / "cuda_shim.h").write_text(SHIM)
+    for name in os.listdir(CSRC):
+        (d / name).write_text(_translate(open(os.path.join(CSRC, name)).read()))
+    libs = []
+    for name in ("ec_kernels", "msm_kernels"):
+        so = d / f"lib{name}.so"
+        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
+                        str(d / f"{name}.cu"), "-o", str(so)], check=True,
+                       capture_output=True, text=True, timeout=300)
+        libs.append(ctypes.CDLL(str(so)))
+    ec_kernels._declare(libs[0])
+    msm_kernels._declare(libs[1])
+    return libs
+
+
+@pytest.fixture
+def kernels(emulated, monkeypatch):
+    """The wrappers' launch paths, pointed at the emulated libraries."""
+    monkeypatch.setattr(ec_kernels, "_lib", lambda: emulated[0])
+    monkeypatch.setattr(msm_kernels, "_lib", lambda: emulated[1])
+    monkeypatch.setattr(ec_kernels, "_stream", lambda t: None)
+    monkeypatch.setattr(msm_kernels, "_stream", lambda t: None)
+    monkeypatch.setattr(ec_kernels, "_require_cuda", lambda t, what: None)
+    return ec_kernels
+
+
+@pytest.fixture(scope="module")
+def points():
+    return chip_smoke.load_points("cpu")
+
+
+def _fops(g2):
+    return ec.G2_OPS if g2 else ec.G1_OPS
+
+
+def _pair(points, g2, n, seed):
+    g1a, g1b, g2h = points
+    if g2:
+        P, Q = chip_smoke.g2_lanes(g2h, 0, n), chip_smoke.g2_lanes(g2h, n, 2 * n)
+    else:
+        P, Q = chip_smoke.g1_lanes(g1a, 0, n), chip_smoke.g1_lanes(g1b, 0, n)
+    return chip_smoke.craft(_fops(g2), P, Q, seed=seed)
+
+
+def _cut(fops, A, n):
+    return ec.JacPoint(*(fops.lane_map(lambda a: a[:, :n].contiguous(), c)
+                         for c in A))
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+@pytest.mark.parametrize("complete", [True, False])
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k2_emulated(kernels, points, g2, complete):
+    """K2 at 512 lanes and 449 (a ragged block; for G2 an unpaired warp
+    tail), and on the halving reduce's views, against jac_add_n_plain."""
+    fops = _fops(g2)
+    P, Q = _pair(points, g2, 512, seed=1 + g2)
+    for n in (512, 449):
+        Pn, Qn = _cut(fops, P, n), _cut(fops, Q, n)
+        _equal(kernels._launch_jac_add_n(fops, Pn, Qn, complete),
+               ec_kernels.jac_add_n_plain(fops, Pn, Qn, complete))
+    n = 512
+
+    def join(p, q):
+        if not g2:
+            return torch.cat([p, q], dim=-1)
+        return torch.cat([p[:, :n], q[:, :n], p[:, n:], q[:, n:]], dim=-1)
+    W = ec.JacPoint(*(join(p, q) for p, q in zip(P, Q)))
+    lo, hi = msm._lane_range(fops, W, 0, n), msm._lane_range(fops, W, n, 2 * n)
+    _equal(kernels._launch_jac_add_n(fops, lo, hi, complete),
+           ec_kernels.jac_add_n_plain(fops, P, Q, complete))
+
+
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k1_emulated(kernels, points, g2, inclusive):
+    """K1 on the step-major layout, C = 29 chunks of S = 16 (not a multiple
+    of any block), and C = 32 with the totals written for a next level of
+    16; crafted pairs in consecutive steps of a chunk."""
+    fops = _fops(g2)
+    S = 16
+    A, B = _pair(points, g2, 32 * S, seed=3 + g2)
+    for C, steps in ((29, 1), (32, 16)):
+        pts = chip_smoke.k1_input(fops, A, B, C, S)
+        got = kernels._launch_chunk_scan(fops, pts, S, inclusive, steps)
+        want = ec_kernels.chunk_scan_plain(fops, pts, S, inclusive, steps)
+        _equal(got[0], want[0])
+        _equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k3_emulated(kernels, points, g2):
+    """K3 over 128 lanes x 10 bits (chip_smoke.ladder_inputs: zero and one
+    scalars, identity points, equal and opposite points meeting in the
+    reduction), unreduced and reduced over segments of 64."""
+    fops = _fops(g2)
+    g1a, _, g2h = points
+    P = chip_smoke.g2_lanes(g2h, 0, 128) if g2 else chip_smoke.g1_lanes(g1a, 0, 128)
+    P, bits = chip_smoke.ladder_inputs(fops, P, 10, seed=11)
+    for group in (1, 64):
+        got = msm_kernels._launch(fops, P, bits, 10, True, group)
+        want = msm_kernels.ladder_plain(fops, P, bits, 10,
+                                        None if group == 1 else group)
+        _equal(got, want)

@@ -20,8 +20,9 @@
 // materialise [n_bits, N] bits.
 //
 // What bounds it on this card: integer multiply-adds. Per lane per bit a
-// doubling is 7 Montgomery products and an addition 16 (G2: three base
-// products each), ~258 IMAD slots per product; the bytes are one read of
+// doubling is 7 Montgomery products and an addition 16, 11 where the
+// lane's point is affine (G2: three base products each), ~258 IMAD slots
+// per product (bn254.cuh's inlined product); the bytes are one read of
 // each point and bit and one write per output. The design: one thread per
 // lane with the accumulator and the lane's point in registers for the
 // whole ladder (one read of the inputs, one write), so the kernel is pure
@@ -47,26 +48,6 @@ struct Bits {
   long long lane;
 };
 
-__device__ __forceinline__ bool fp_is_one(const Fp& a) {
-  uint32_t acc = 0u;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc |= a.w[i] ^ kOne[i];
-  return acc == 0u;
-}
-__device__ __forceinline__ bool f_is_one(const Fp& a) { return fp_is_one(a); }
-__device__ __forceinline__ bool f_is_one(const Fp2& a) {
-  return fp_is_one(a.c0) && fp_is_zero(a.c1);
-}
-
-// Complete P + Q (ec.jac_add), returning early on the identity cases, which
-// is the value jac_add selects there.
-template <class F>
-__device__ __forceinline__ Jac<F> add_complete(const Jac<F>& P, const Jac<F>& Q) {
-  if (f_is_zero(Q.z)) return P;
-  if (f_is_zero(P.z)) return Q;
-  return jac_add<F, true>(P, Q);
-}
-
 template <class F>
 __device__ __forceinline__ Jac<F> ladder(const Jac<F>& P, const Bits& b, size_t lane,
                                          int n_bits) {
@@ -75,7 +56,7 @@ __device__ __forceinline__ Jac<F> ladder(const Jac<F>& P, const Bits& b, size_t 
     if (!(f_is_zero(acc.z) && f_is_one(acc.x) && f_is_one(acc.y)))
       acc = jac_double(acc);
     if (b.p[(long long)k * b.row + (long long)lane * b.lane] != 0)
-      acc = add_complete(acc, P);
+      acc = jac_add<F, true>(acc, P);
   }
   return acc;
 }
@@ -83,13 +64,13 @@ __device__ __forceinline__ Jac<F> ladder(const Jac<F>& P, const Bits& b, size_t 
 template <class F>
 __global__ void __launch_bounds__(kLadderThreads)
 ladder_kernel(InArrs pts, Bits bits, int n_bits, int run_ladder, OutArrs out,
-              long long N, long long ld, long long out_ld, int group) {
+              long long N, int group) {
   __shared__ Jac<F> sh[kLadderThreads];
   const int t = threadIdx.x;
   const size_t lane = (size_t)blockIdx.x * kLadderThreads + t;
   Jac<F> acc = jac_identity<F>();
   if (lane < (size_t)N) {
-    const Jac<F> P = load_point<F>(pts, lane, (size_t)ld);
+    const Jac<F> P = load_point<F>(pts, lane);
     acc = run_ladder ? ladder<F>(P, bits, lane, n_bits) : P;
   }
   if (group > 1) {
@@ -98,13 +79,13 @@ ladder_kernel(InArrs pts, Bits bits, int n_bits, int run_ladder, OutArrs out,
     for (int s = group >> 1; s >= 1; s >>= 1) {
       // lanes whose offset in the group is below s add the lane s above:
       // the halving order of ops/msm_kernels.py:_grouped_reduce
-      if ((t & (2 * s - 1)) < s) sh[t] = add_complete<F>(sh[t], sh[t + s]);
+      if ((t & (2 * s - 1)) < s) sh[t] = jac_add<F, true>(sh[t], sh[t + s]);
       __syncthreads();
     }
     acc = sh[t];
   }
   if (lane < (size_t)N && (t & (group - 1)) == 0)
-    store_point<F>(out, lane / group, (size_t)out_ld, acc);
+    store_point<F>(out, lane / group, acc);
 }
 
 }  // namespace zksc
@@ -132,19 +113,17 @@ int zksc_ladder(int g2, int run_ladder, const void* bits, long long bit_row,
   if (group < 1 || group > zksc::kLadderThreads || (group & (group - 1)))
     return (int)cudaErrorInvalidValue;
   const InArrs P = {{(const uint32_t*)p0, (const uint32_t*)p1, (const uint32_t*)p2,
-                     (const uint32_t*)p3, (const uint32_t*)p4, (const uint32_t*)p5}};
+                     (const uint32_t*)p3, (const uint32_t*)p4, (const uint32_t*)p5}, ld};
   const OutArrs O = {{(uint32_t*)o0, (uint32_t*)o1, (uint32_t*)o2,
-                      (uint32_t*)o3, (uint32_t*)o4, (uint32_t*)o5}};
+                      (uint32_t*)o3, (uint32_t*)o4, (uint32_t*)o5}, out_ld};
   const zksc::Bits b = {(const int32_t*)bits, bit_row, bit_lane};
   cudaStream_t st = (cudaStream_t)stream;
   const long long blocks = (N + zksc::kLadderThreads - 1) / zksc::kLadderThreads;
   const dim3 grid((unsigned)blocks), block(zksc::kLadderThreads);
   if (g2)
-    zksc::ladder_kernel<Fp2><<<grid, block, 0, st>>>(P, b, n_bits, run_ladder, O, N,
-                                                     ld, out_ld, group);
+    zksc::ladder_kernel<Fp2><<<grid, block, 0, st>>>(P, b, n_bits, run_ladder, O, N, group);
   else
-    zksc::ladder_kernel<Fp><<<grid, block, 0, st>>>(P, b, n_bits, run_ladder, O, N,
-                                                    ld, out_ld, group);
+    zksc::ladder_kernel<Fp><<<grid, block, 0, st>>>(P, b, n_bits, run_ladder, O, N, group);
   return (int)cudaGetLastError();
 }
 

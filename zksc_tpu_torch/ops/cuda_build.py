@@ -15,6 +15,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -67,19 +68,28 @@ def build(names=None, verbose: bool = False) -> dict:
         tmp = lib_path(n) + f".{os.getpid()}.tmp"
         cmd = [_nvcc(), *(["-Xptxas", "-v"] if verbose else []), *NVCC_FLAGS,
                "-o", tmp, os.path.join(CSRC, LIBS[n][0])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, time.time())
+        log = tempfile.TemporaryFile(mode="w+")
+        procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                     text=True), tmp, log, time.time())
     failed = []
-    for n, (proc, tmp, t0) in procs.items():
-        out, _ = proc.communicate()
-        secs[n] = time.time() - t0
-        if proc.returncode != 0:
-            failed.append(f"{LIBS[n][0]} ({proc.returncode}):\n{out}")
-            continue
-        if verbose:
-            print(f"--- nvcc {LIBS[n][0]}: {secs[n]:.2f} s\n{out}", flush=True)
-        os.replace(tmp, lib_path(n))
+    pending = set(procs)
+    while pending:                     # each library's own seconds
+        for n in sorted(pending):
+            proc, tmp, log, t0 = procs[n]
+            if proc.poll() is None:
+                continue
+            pending.discard(n)
+            secs[n] = time.time() - t0
+            log.seek(0)
+            out = log.read()
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"{LIBS[n][0]} ({proc.returncode}):\n{out}")
+                continue
+            if verbose:
+                print(f"--- nvcc {LIBS[n][0]}: {secs[n]:.2f} s\n{out}", flush=True)
+            os.replace(tmp, lib_path(n))
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return secs

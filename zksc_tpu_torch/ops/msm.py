@@ -12,11 +12,13 @@ boundaries. So per window:
   1. sort point indices by digit (one stable global sort, windows and
      proofs concatenated with segment-prefixed keys)
   2. hierarchical prefix scan of EC adds over the sorted points: chunk-local
-     scans of _SCAN_S steps (K1, ec_kernels.chunk_scan) per level, then a
-     small Hillis-Steele top
+     scans of _SCAN_S steps (K1, ec_kernels.chunk_scan) per level, each
+     level held step-major so that K1 reads it coalesced and nothing is
+     transposed, then a small Hillis-Steele top
   3. gather V at the 2^c bucket boundaries, add the upper levels' offsets,
      subtract the segment prefix, mask empty buckets
-  4. shrinking halving-tree reduce over the bucket axis -> S_w
+  4. shrinking halving-tree reduce over the bucket axis -> S_w (K2 reads
+     both halves of the bucket array in place)
 
   MSM = sum_w 2^{c*w} * S_w      (host Horner combine, msm_to_host_affine)
 
@@ -67,26 +69,28 @@ def scalars_to_digits(scalars_plain, c: int, n_windows: int):
     return torch.stack(outs)
 
 
-def _local_scan(fops, pts: JacPoint, S: int, inclusive: bool):
-    """Chunk-local prefix scan along lanes: view [N] as [N//S chunks, S],
-    scan within each chunk (K1). Returns (scanned [N] position-major,
-    chunk totals [N//S])."""
-    N = fops.lane_width(pts.x)
-    C = N // S
+def _local_scan(fops, pts: JacPoint, S: int, inclusive: bool,
+                carry_steps: int = 1):
+    """Chunk-local prefix scan of C chunks of S lanes (K1), on the
+    step-major layout the scan holds (lane = step * C + chunk), read and
+    written in place. Returns (scanned, chunk totals); the totals in chunk
+    order, or in the step-major order of a next level of carry_steps."""
+    return ec_kernels.chunk_scan(fops, pts, S, inclusive, carry_steps)
 
-    def ts(a):
-        # position-major [L, C*S] (lane = chunk*S + t) -> step-major [S, L, C]
-        return a.reshape(a.shape[0], C, S).permute(2, 0, 1).contiguous()
 
-    def fs(a):
-        # [S, L, C] -> position-major [L, C*S]
-        return a.permute(1, 2, 0).reshape(a.shape[1], C * S)
+def _step_major(idx, S: int, chunks):
+    """Sorted position p = chunk * S + step -> its lane in a K1 level's
+    step-major layout (step * chunks + chunk); a Hillis-Steele level
+    (chunks None) holds positions in order."""
+    return idx if chunks is None else (idx % S) * chunks + idx // S
 
-    raws = ec_kernels.split_coords(fops, pts)
-    ys, carry = ec_kernels.chunk_scan(fops, [ts(a) for a in raws], S,
-                                      inclusive)
-    return (ec_kernels.join_coords(fops, [fs(y) for y in ys]),
-            ec_kernels.join_coords(fops, carry))
+
+def _lane_range(fops, P: JacPoint, lo: int, hi: int) -> JacPoint:
+    """Lanes [lo, hi) of P as views that K2 reads in place (G2: [16, 2, n]
+    over the folded layout), no copy."""
+    if isinstance(fops, ec.Fp2Ops):
+        return JacPoint(*(a.view(a.shape[0], 2, -1)[:, :, lo:hi] for a in P))
+    return JacPoint(*(a[:, lo:hi] for a in P))
 
 
 def _add_wide(fops, P: JacPoint, Q: JacPoint, complete: bool) -> JacPoint:
@@ -144,43 +148,51 @@ def _window_sums(fops, points: JacPoint, digits, c: int, k: int, n: int):
     # stable: ties keep index order within a segment, as lax.sort does
     _, sidx = torch.sort(key, stable=True)
     sidx = sidx % n                                               # point index
-    pts = _jp(fops, lambda a: a[:, sidx], points)                 # [L, N]
 
     # ---- hierarchical prefix scan ----
-    levels = []                                                   # (scan, stride)
-    if N <= _HS_MAX or N % _SCAN_S:
-        s0 = _hs_scan(fops, pts, exclusive=False)
+    # K1 levels hold step-major lanes: the sorted gather writes level 0 in
+    # that order and K1 writes each level's chunk totals where the next
+    # level reads them, so no level is transposed. A level continues while
+    # its chunk count is a multiple of _SCAN_S above _HS_MAX.
+    S = _SCAN_S
+    deeper = lambda chunks: S if chunks > _HS_MAX and chunks % S == 0 else 1
+    levels = []                                         # (scan, stride, chunks)
+    if N <= _HS_MAX or N % S:
+        C0 = None
+        s0 = _hs_scan(fops, _jp(fops, lambda a: a[:, sidx], points),
+                      exclusive=False)
     else:
-        s0, tot = _local_scan(fops, pts, _SCAN_S, inclusive=True)
-        stride = _SCAN_S
-        while fops.lane_width(tot.x) > _HS_MAX and \
-                fops.lane_width(tot.x) % _SCAN_S == 0:
-            e, tot = _local_scan(fops, tot, _SCAN_S, inclusive=False)
-            levels.append((e, stride))
-            stride *= _SCAN_S
-        levels.append((_hs_scan(fops, tot, exclusive=True), stride))
+        C0 = N // S
+        order = sidx.reshape(C0, S).T.reshape(-1)
+        s0, tot = _local_scan(fops, _jp(fops, lambda a: a[:, order], points),
+                              S, True, deeper(C0))
+        stride, C = S, C0
+        while deeper(C) > 1:
+            C //= S
+            e, tot = _local_scan(fops, tot, S, False, deeper(C))
+            levels.append((e, stride, C))
+            stride *= S
+        levels.append((_hs_scan(fops, tot, exclusive=True), stride, None))
+
+    def prefix(at):
+        """Inclusive prefix sums at sorted positions `at`: s0 plus each
+        upper level's exclusive offset (incomplete adds)."""
+        acc = _jp(fops, lambda a: a[:, _step_major(at, S, C0)], s0)
+        for e, st, ch in levels:
+            ep = torch.clamp(at // st, 0, fops.lane_width(e.x) - 1)
+            acc = _add_wide(fops, acc, _jp(
+                fops, lambda a: a[:, _step_major(ep, S, ch)], e), complete=False)
+        return acc
 
     # ---- bucket boundaries (q-major lanes: lane = q*segs + s) ----
     cnt = cum.T                                                   # [2^c, segs]
     base = (torch.arange(segs, dtype=torch.int64, device=dev) * n)[None, :]
-    pos = torch.clamp(base + cnt - 1, 0, N - 1).reshape(-1)
-    V = _jp(fops, lambda a: a[:, pos], s0)
-    for e, st in levels:
-        lim = fops.lane_width(e.x) - 1
-        ep = torch.clamp(pos // st, 0, lim)
-        V = _add_wide(fops, V, _jp(fops, lambda a: a[:, ep], e),
-                      complete=False)
+    V = prefix(torch.clamp(base + cnt - 1, 0, N - 1).reshape(-1))
 
     # subtract the segment prefix (all points of earlier segments): for
     # segment s > 0 that's V_global at position s*n - 1; identity for s == 0
-    pre_pos = torch.clamp(torch.arange(segs, dtype=torch.int64, device=dev)
-                          * n - 1, 0, N - 1)
-    Pre = _jp(fops, lambda a: a[:, pre_pos], s0)
-    for e, st in levels:
-        lim = fops.lane_width(e.x) - 1
-        ep = torch.clamp(pre_pos // st, 0, lim)
-        Pre = _add_wide(fops, Pre, _jp(fops, lambda a: a[:, ep], e),
-                        complete=False)
+    Pre = prefix(torch.clamp(torch.arange(segs, dtype=torch.int64, device=dev)
+                             * n - 1, 0, N - 1))
     first_seg = torch.arange(segs, device=dev) == 0
     Pre = JacPoint(Pre.x, fops.neg(Pre.y),
                    fops.select(first_seg, fops.zeros_like(Pre.z), Pre.z))
@@ -199,9 +211,9 @@ def _window_sums(fops, points: JacPoint, digits, c: int, k: int, n: int):
     half = two_c
     while half > 1:
         half //= 2
-        lo = _jp(fops, lambda a: a[:, : half * segs].contiguous(), T)
-        hi = _jp(fops, lambda a: a[:, half * segs: 2 * half * segs].contiguous(), T)
-        T = _add_wide(fops, lo, hi, complete=True)
+        T = _add_wide(fops, _lane_range(fops, T, 0, half * segs),
+                      _lane_range(fops, T, half * segs, 2 * half * segs),
+                      complete=True)
     return T                                                      # [L, segs]
 
 
