@@ -4,6 +4,10 @@
     python3 chip_smoke.py               # all phases (one card)
     python3 chip_smoke.py --profile     # all phases + a torch.profiler
                                         # breakdown of one more proof
+    python3 chip_smoke.py --toprf aes-128-ctr-toprf
+                                        # phases 1, 2 and phase 8 (with its
+                                        # phase 5 replay) for one -toprf
+                                        # statement alone
 
 Phases, each printing its elapsed seconds on a flushed line of its own:
 
@@ -27,7 +31,12 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      points, and equal and opposite points on lanes the reduction pairs;
      each kernel must equal its plain PyTorch version limb for limb. K3
      over 254 bits on 8 lanes must equal curve/bn254_host's scalar
-     products and their sum.
+     products and their sum. K1 and K2 at the digit pattern of 254-bit
+     wire scalars: every call of a 13-bit-window bucket MSM (20 windows,
+     the top one 7 bits wide) over 4,096 lanes, and of its top window
+     alone over 16,384 lanes (almost every bucket empty), G1 and G2,
+     equal to the plain versions; and torch.sort(stable=True) over the 20
+     x 131,072 keys of that shape gives the stable permutation.
   4. main path at full size: api.generate_proof("chacha20", ...) twice on
      a 128-byte chunk with the committed artifacts/chacha20 key (45,217
      wires, domain 2^16); api.verify_proof must accept it and reject a
@@ -47,8 +56,20 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      for G1 and G2), keys from the port's setup on the card; each proof
      verifies and equals the force_pippenger proof under the same rng; K3's
      counter, reset just before, must be > 0.
+  8. the TOPRF statements: the three -toprf circuits compile to the
+     digests of the committed manifests; keygen for chacha20-toprf (fixed
+     --seed, 91,001 wires, domain 2^17) into the port's key store; a host
+     TOPRF round through the port's OPRFOperator (threshold keys n=3,
+     t=2, a request over a redacted span of a 128-byte plaintext,
+     evaluations by two shares, finalise); api.generate_proof(...,
+     toprf=, mask=) with the key made here, cold, warm (launch counters
+     reset just before it, K1 and K2 must be > 0; stage seconds, peak
+     device memory) and once more for phase 5; verify_proof accepts the
+     warm proof, whose envelope carries no plaintext, and rejects a
+     flipped ciphertext byte, the TOPRF output plus one and the other
+     share's response.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
-     6 and 7): the first of the largest inputs each kernel variant got in
+     6, 7 and 8): the first of the largest inputs each kernel variant got in
      each path is replayed through the kernel and its plain version (equal
      limb for limb; for K3 over more than 128 lanes the plain version runs
      on a sample of an unreduced input's lanes that reaches every block of
@@ -58,7 +79,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      products, G2 three base products per Fp2 product). Then every kernel
      call of one warm chacha20 and one warm aes-128-ctr proof is replayed
      in order: per kernel the launches, the summed ms, the summed bound and
-     the adds whose Q is affine, which also go into the kernels line.
+     the adds whose Q is affine, which also go into the kernels line;
+     likewise for the recorded chacha20-toprf proof of phase 8.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
@@ -577,6 +599,89 @@ def check_ladder(g1a, g2h, imad_rate, N=4096, n_bits=32):
     return err, plain_ms
 
 
+def check_wide_windows(g1a, g2h, n=4096, n_top=16384):
+    """Phase 3, K1 and K2 at the digit pattern of 254-bit wire scalars (the
+    TOPRF statements' A, B1, B2, C MSMs): every K1 / K2 call of a bucket
+    MSM with 13-bit windows (20 windows, the top one of 254 - 19 * 13 = 7
+    bits) over n lanes, and of the top window alone over n_top lanes
+    (digits below 2^7: at least 8,064 of the 8,192 buckets empty), replayed
+    through the kernel and its plain version, equal limb for limb."""
+    import random
+
+    import torch
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.ops import ec, msm
+    c, W = 13, 20
+    rnd = random.Random(29)
+    err = 0
+    for g2 in (False, True):
+        fops = ec.G2_OPS if g2 else ec.G1_OPS
+        tag = "G2" if g2 else "G1"
+        for label, lanes in (("20 windows", n), ("top window alone", n_top)):
+            P = g2_lanes(g2h, 0, lanes) if g2 else g1_lanes(g1a, 0, lanes)
+            sp = Fr.to_device([rnd.randrange(host.R) for _ in range(lanes)],
+                              mont=False, device=P.x.device)
+            rec = Recorder()
+            with rec:
+                rec.window = True
+                if label == "20 windows":
+                    msm.msm_pippenger_device(fops, P, sp, 254, c=c)
+                else:
+                    top = msm.scalars_to_digits(sp, c, W)[W - 1:][None]
+                    if int(top.max().item()) >= 1 << (254 - (W - 1) * c):
+                        raise AssertionError("top window wider than 7 bits")
+                    msm._window_sums(fops, P, top, c, 1, lanes)
+            t = time.time()
+            n_calls = {"chunk_scan": 0, "jac_add_n": 0}
+            for (name, _, _), f, args in rec.log:
+                kern, plain = kernel_fns(name)
+                e = max_abs_diff(flat_result(name, kern(f, *args)),
+                                 flat_result(name, plain(f, *args)))
+                if e:
+                    raise AssertionError(f"{name} {tag} at 13-bit windows "
+                                         f"({label}): kernel != plain")
+                n_calls[name] += 1
+                err = max(err, e)
+            torch.cuda.synchronize()
+            log(f"K1/K2 {tag} 254-bit scalars, 13-bit windows, {label}, "
+                f"n={lanes}: {n_calls} calls, each kernel == plain "
+                f"({time.time() - t:.2f} s)")
+            if not all(n_calls.values()):
+                raise AssertionError(f"{tag} {label}: a kernel was not called")
+    return err
+
+
+def check_stable_sort(n=131072, c=13, W=20):
+    """Phase 3: the MSM's keyed sort at the TOPRF shape (W windows of n
+    lanes, chacha20-toprf's 13-bit windows): torch.sort(stable=True) on the
+    card must give THE stable permutation (keys ascending, ties in index
+    order), the one lax.sort gives. Scalars as a TOPRF witness holds them:
+    mostly bits, one in ten full width."""
+    import random
+
+    import torch
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.ops import msm
+    rnd = random.Random(31)
+    vals = [rnd.randrange(host.R) if rnd.random() < 0.1 else rnd.randrange(2)
+            for _ in range(n)]
+    sp = Fr.to_device(vals, mont=False, device="cuda")
+    digits = msm.scalars_to_digits(sp, c, W)[None]            # [1, W, n]
+    f = ((1 << c) - 1) - digits.to(torch.int64)
+    seg = torch.arange(W, dtype=torch.int64, device="cuda").reshape(1, W, 1)
+    key = (seg * (1 << c) + f).reshape(-1)
+    _, sidx = torch.sort(key, stable=True)
+    k = key[sidx]
+    ok = bool(((k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (sidx[1:] > sidx[:-1])))
+              .all().item())
+    log(f"torch.sort(stable=True) over {W} x {n} MSM keys: the stable "
+        f"permutation: {ok}")
+    if not ok:
+        raise AssertionError("torch.sort(stable=True) broke a tie's order")
+
+
 class Recorder:
     """Wraps the module attributes that ops/msm.py and ops/ec.py call (the
     wrapped functions run unchanged) and keeps, per kernel variant, the
@@ -851,6 +956,180 @@ def drive_aes(api, reset_counts, counts, rec) -> dict:
     return launches
 
 
+TOPRF_SEED = 20241        # keygen --seed of phase 8 (not a secret key)
+TOPRF_ALGS = ("chacha20-toprf", "aes-128-ctr-toprf", "aes-256-ctr-toprf")
+
+
+def toprf_round(api, plaintext: bytes, pos: int, length: int):
+    """Phase 8's host TOPRF round through the port's OPRFOperator, on the
+    wire format: threshold keys n=3, t=2; a request over the redacted span
+    plaintext[pos:pos+length]; evaluations by shares 1 and 2; finalise,
+    which must give the output of the master key. The circuit checks one
+    share's response (THRESHOLD = 1, as the reference's toprf.go), so the
+    proof's signals carry share 1's response and its own finalised output.
+    Returns (signals, mask, signals carrying share 2's response)."""
+    import random
+    from base64 import b64decode
+
+    from zksc_tpu_torch.oprf import oprf
+    from zksc_tpu_torch.oprf.operator import make_oprf_operator
+    from zksc_tpu_torch.oprf.operator import point_from_bytes
+    rnd = random.Random(4242)
+    op = make_oprf_operator(rng=lambda: rnd.randrange(2, oprf.L),
+                            device="cuda")
+    num = lambda b64: int.from_bytes(b64decode(b64), "big")
+    pt = lambda b64: point_from_bytes(b64decode(b64))
+    t = time.time()
+    keys = op.generate_threshold_keys(3, 2)
+    request = op.generate_oprf_request_data(plaintext[pos:pos + length],
+                                            "reclaim")
+    responses = []
+    for share in keys["shares"][:2]:
+        r = op.evaluate_oprf(share["privateKey"], request["maskedData"])
+        responses.append(dict(r, index=share["index"],
+                              publicKeyShare=share["publicKey"]))
+    output = num(op.finalise_oprf(keys["publicKey"], request,
+                                  responses)["output"])
+    req = oprf.OPRFRequest(mask=num(request["mask"]),
+                           masked_point=pt(request["maskedData"]),
+                           secret_elements=[num(b) for b in
+                                            request["secretElements"]])
+    master = oprf.finalize(req, oprf.evaluate(num(keys["privateKey"]),
+                                              req.masked_point))
+    if output != master:
+        raise AssertionError("threshold output != the master key's output")
+    signals = []
+    for r in responses:
+        resp = oprf.OPRFResponse(
+            evaluated=pt(r["evaluated"]),
+            public_key=pt(r["publicKeyShare"]),
+            dleq=oprf.DLEQProof(c=num(r["c"]), r=num(r["r"])))
+        signals.append(api.TOPRFResponseSignals(
+            index=r["index"], public_key=resp.public_key,
+            evaluated=resp.evaluated, c=resp.dleq.c, r=resp.dleq.r))
+    own = oprf.threshold_finalize(req, {1: oprf.OPRFResponse(
+        signals[0].evaluated, signals[0].public_key,
+        oprf.DLEQProof(signals[0].c, signals[0].r))})
+    make = lambda resp: api.ZKTOPRFPublicSignals(
+        locations=[(pos, length)], domain_separator=b"reclaim", output=own,
+        responses=[resp])
+    log(f"phase 8 TOPRF round (n=3, t=2, span [{pos}, {pos + length}) of "
+        f"{len(plaintext)} bytes): threshold output == master key's, "
+        f"{time.time() - t:.2f} s on the host")
+    return make(signals[0]), req.mask, make(signals[1])
+
+
+def drive_toprf(api, alg: str, reset_counts, counts, rec) -> dict:
+    """Phase 8 for one -toprf statement: keygen on the card into the port's
+    key store, a host TOPRF round, three proofs through api.generate_proof
+    (cold; warm, with the launch counters reset just before it, its stage
+    seconds and peak device memory; one more whose kernel calls `rec`
+    logs for phase 5), verify and three tampered cases. Returns the warm
+    proof's launch counts."""
+    import random
+
+    import torch
+    from zksc_tpu_torch import keygen
+    from zksc_tpu_torch.config import CONFIG
+    from zksc_tpu_torch.operators import Groth16Operator
+    base = alg[: -len("-toprf")]
+    cfg = CONFIG[alg]
+    t0 = time.time()
+    times = keygen.run(alg, seed=TOPRF_SEED,
+                       log=lambda m: log(f"phase 8 keygen {m}"))
+    log("phase 8 keygen stages: " + " ".join(f"{k}={v:.2f}"
+                                             for k, v in times.items())
+        + f" (total {time.time() - t0:.2f} s)")
+    # prove with the key made here, also where the checkout holds the JAX
+    # package's committed key under artifacts/
+    store = os.path.join(keygen.KEY_STORE, alg)
+    op = Groth16Operator(alg, artifact_dir=store, allow_setup=False,
+                         device="cuda")
+    api._OPERATORS[(alg, "groth16", "cuda")] = op
+
+    rnd = random.Random(2026)
+    key = bytes(rnd.randrange(256) for _ in range(cfg.key_size_bytes))
+    iv = bytes(rnd.randrange(256) for _ in range(cfg.iv_size_bytes))
+    pt = bytes(rnd.randrange(256) for _ in range(cfg.chunk_size_bytes))
+    ct = api._decrypt(base, key, iv, cfg.start_counter, pt)
+    pos, length = (32, 24) if base == "chacha20" else (20, 24)
+    signals, mask, other = toprf_round(api, pt, pos, length)
+    blind = random.Random(11)
+    rng = lambda: blind.randrange(1, 1 << 250)
+    for i, label in ((1, "cold: keys load + context + prove"),
+                     (2, "warm"), (3, "recorded for phase 5")):
+        torch.cuda.synchronize()
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset_counts()
+        t = time.time()
+        if i == 3:
+            with rec:
+                rec.window = True
+                env = api.generate_proof(base, key, ct, iv, toprf=signals,
+                                         mask=mask, device="cuda", rng=rng)
+                rec.window = False
+        else:
+            env = api.generate_proof(base, key, ct, iv, toprf=signals,
+                                     mask=mask, device="cuda", rng=rng)
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
+        log(f"phase 8 {alg} proof {i} ({label}): {secs:.3f} s ({stages})")
+        if i == 2:
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+            warm = env
+    if op._key_dir() != store:
+        raise AssertionError(f"phase 8 proved with {op._key_dir()}, not the "
+                             "key made on the card")
+    log(f"phase 8 {alg} warm proof launches {launches}; peak device memory "
+        f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB allocated before the proof (the key, and "
+        f"earlier phases' recorded kernel inputs)")
+    for k in ("chunk_scan", "jac_add_n"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 f"{alg} path")
+    if warm.algorithm != alg or warm.plaintext != b"":
+        raise AssertionError("the -toprf envelope must carry no plaintext")
+    t = time.time()
+    ok = api.verify_proof(warm, ct, iv, toprf=signals, device="cuda")
+    log(f"phase 8 verify: {ok} ({time.time() - t:.2f} s)")
+    if not ok:
+        raise AssertionError(f"the {alg} proof did not verify")
+    flipped = ct[:7] + bytes([ct[7] ^ 0x04]) + ct[8:]
+    plus_one = api.ZKTOPRFPublicSignals(
+        signals.locations, signals.domain_separator, signals.output + 1,
+        signals.responses)
+    for label, c, sig in (("a ciphertext with one byte flipped", flipped,
+                           signals),
+                          ("the TOPRF output plus one", ct, plus_one),
+                          ("the other share's response", ct, other)):
+        if api.verify_proof(warm, c, iv, toprf=sig, device="cuda"):
+            raise AssertionError(f"{alg}: {label} verified")
+        log(f"phase 8 rejected: {label}")
+    log(f"phase 8 {alg} total {time.time() - t0:.2f} s")
+    return launches
+
+
+def check_toprf_digests():
+    """Phase 8: the three -toprf circuits compile to the digests of the
+    committed manifests."""
+    from zksc_tpu_torch.operators import CircuitSpec
+    for alg in TOPRF_ALGS:
+        t = time.time()
+        cs = CircuitSpec(alg).cs
+        with open(os.path.join(HERE, "artifacts", alg, "manifest.json")) as f:
+            want = json.load(f)["digest"]
+        log(f"phase 8 {alg} circuit: {cs.n_constraints} constraints, "
+            f"{cs.n_wires} wires, digest {cs.digest()[:12]}.. "
+            f"({time.time() - t:.2f} s)")
+        if cs.digest() != want:
+            raise AssertionError(f"{alg} digest {cs.digest()} != {want}")
+
+
 def _power_circuit(n_mul: int, extra_bits: bool):
     """out == x^(n_mul+1) + x + 41 (plus an 8-bit decomposition of x + 2
     when extra_bits): the x^13 toy of tests/port/test_torch_prove.py for
@@ -980,16 +1259,31 @@ def main(argv) -> int:
     def counts():
         return {**ec_kernels.LAUNCHES, **msm_kernels.LAUNCHES}
 
+    from zksc_tpu_torch import api
+    if "--toprf" in argv:
+        # one -toprf statement alone: its phase 8 and its phase 5 replay
+        alg = argv[argv.index("--toprf") + 1]
+        if alg not in TOPRF_ALGS:
+            raise ValueError(f"--toprf takes one of {TOPRF_ALGS}")
+        rec = Recorder()
+        drive_toprf(api, alg, reset_counts, counts, rec)
+        time_kernels(rec.calls, imad_rate, alg)
+        proof_totals(rec.log, imad_rate, alg, counts, reset_counts)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     # ---- 3. kernels vs plain at check sizes
     g1a, g1b, g2h = load_points(device)
     err = check_kernels(g1a, g1b, g2h, imad_rate)
     k3_err, k3_plain_ms = check_ladder(g1a, g2h, imad_rate)
-    err = max(err, k3_err)
+    err = max(err, k3_err, check_wide_windows(g1a, g2h))
+    check_stable_sort()
     log(f"phase 3 kernel checks passed (max_abs_err {err})")
     del g1a, g1b, g2h
 
     # ---- 4. chacha20 main path at full size
-    from zksc_tpu_torch import api
     import random
     rnd = random.Random(2024)
     key = bytes(rnd.randrange(256) for _ in range(32))
@@ -1042,12 +1336,19 @@ def main(argv) -> int:
     with rec_ladder:
         ladder_launches = drive_ladder_branch(reset_counts, counts)
 
+    # ---- 8. the TOPRF statements: chacha20-toprf at full width
+    check_toprf_digests()
+    rec_toprf = Recorder()
+    drive_toprf(api, "chacha20-toprf", reset_counts, counts, rec_toprf)
+
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")
             + time_kernels(rec_aes.calls, imad_rate, "aes-128-ctr")
-            + time_kernels(rec_ladder.calls, imad_rate, "ladder branch"))
+            + time_kernels(rec_ladder.calls, imad_rate, "ladder branch")
+            + time_kernels(rec_toprf.calls, imad_rate, "chacha20-toprf"))
     per_proof = {}
-    for path, rec in (("chacha20", rec_chacha), ("aes-128-ctr", rec_aes)):
+    for path, rec in (("chacha20", rec_chacha), ("aes-128-ctr", rec_aes),
+                      ("chacha20-toprf", rec_toprf)):
         per_proof[path] = proof_totals(rec.log, imad_rate, path, counts,
                                        reset_counts)
         rec.log = []

@@ -1,8 +1,10 @@
 """Keygen CLI: compile a circuit, run the trusted setup on the GPU, write
 digest-pinned keys (pk.npz, pk_meta.json, vk.json) and manifest.json.
 
-    python -m zksc_tpu_torch.keygen [--algorithm chacha20|aes-128-ctr|aes-256-ctr]
-                                    [--out DIR] [--seed N]
+    python -m zksc_tpu_torch.keygen [--algorithm ALG] [--out DIR] [--seed N]
+
+ALG is one of chacha20, aes-128-ctr, aes-256-ctr, chacha20-toprf,
+aes-128-ctr-toprf, aes-256-ctr-toprf (default: all six in turn).
 
 The default --out is the port's key store, zksc_tpu_torch/build/artifacts/
 (ignored by git), never the committed artifacts/ tree. --seed makes the

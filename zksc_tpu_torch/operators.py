@@ -1,8 +1,8 @@
 """Engine operators: the Groth16 prover/verifier for one algorithm.
 
-Ported from the JAX package's ``operators.py`` for the chacha20,
-aes-128-ctr and aes-256-ctr statements under the "groth16" engine. The
-TOPRF statements, the STARK engines and the multi-device mesh are not
+Ported from the JAX package's ``operators.py`` for the six statements
+(chacha20, aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under
+the "groth16" engine. The STARK engines and the multi-device mesh are not
 ported yet; asking for them raises.
 """
 from __future__ import annotations
@@ -15,9 +15,12 @@ import numpy as np
 from .api import PORTED_ALGORITHMS, ZKProofInput
 from .config import CONFIG
 from .device import resolve_device
+from .oprf.locations import compute_bitmask
+from .oprf.oprf import lagrange_coeff
 from .r1cs import check_witness, compile_circuit, generate_witness
 from .r1cs.circuits import aes as aes_circuit
 from .r1cs.circuits import chacha20 as chacha_circuit
+from .r1cs.circuits import toprf_variants
 
 ARTIFACT_ROOT = os.environ.get(
     "ZKSC_ARTIFACT_DIR",
@@ -35,13 +38,21 @@ class CircuitSpec:
         self.algorithm = algorithm
         cfg = CONFIG[algorithm]
         self.blocks = cfg.blocks_per_chunk
-        if algorithm == "chacha20":
+        key_bits = cfg.key_size_bytes * 8
+        if algorithm.endswith("-toprf"):
+            self.module = toprf_variants
+            self.define = toprf_variants.make_define(
+                algorithm, self.blocks, key_bits)
+            self.pub_layout = toprf_variants.public_layout(
+                algorithm, self.blocks)
+            self.priv_layout = toprf_variants.private_layout(
+                algorithm, self.blocks, key_bits)
+        elif algorithm == "chacha20":
             self.module = chacha_circuit
             self.define = chacha_circuit.make_define(self.blocks)
             self.pub_layout = chacha_circuit.public_layout(self.blocks)
             self.priv_layout = chacha_circuit.private_layout(self.blocks)
         else:
-            key_bits = cfg.key_size_bytes * 8
             self.module = aes_circuit
             self.define = aes_circuit.make_define(self.blocks, key_bits)
             self.pub_layout = aes_circuit.public_layout(self.blocks)
@@ -60,8 +71,36 @@ class CircuitSpec:
         ins = [[wi.ciphertext[b * bs:(b + 1) * bs] for b in range(self.blocks)]]
         outs = [[wi.plaintext[b * bs:(b + 1) * bs] for b in range(self.blocks)]]
         infos = [[(blk.nonce, blk.counter) for blk in wi.blocks]]
-        pub, priv = self.module.witness_inputs([wi.key], infos, ins, outs,
-                                               self.blocks)
+        if wi.algorithm.endswith("-toprf"):
+            bnds = [bs if blk.boundary is None else blk.boundary
+                    for blk in wi.blocks]
+            total_bits = 8 * bs * self.blocks
+            bitmask = compute_bitmask(total_bits, wi.toprf.locations, bnds, bs)
+            total_len = sum(l[1] if isinstance(l, tuple) else l.length
+                            for l in wi.toprf.locations)
+            indices = [r.index for r in wi.toprf.responses]
+            tp = {
+                "toprf_domain": [[int.from_bytes(wi.toprf.domain_separator,
+                                                 "big")]],
+                "toprf_resp": [], "toprf_coeff": [], "toprf_share_pub": [],
+                "toprf_c": [], "toprf_r": [],
+                "toprf_out": [[int(wi.toprf.output)]],
+            }
+            for r in wi.toprf.responses:
+                tp["toprf_resp"] += [[int(r.evaluated[0])],
+                                     [int(r.evaluated[1])]]
+                tp["toprf_share_pub"] += [[int(r.public_key[0])],
+                                          [int(r.public_key[1])]]
+                tp["toprf_coeff"].append([lagrange_coeff(indices, r.index)])
+                tp["toprf_c"].append([int(r.c)])
+                tp["toprf_r"].append([int(r.r)])
+            pub, priv = self.module.witness_inputs(
+                wi.algorithm, [wi.key], infos, ins, outs, self.blocks,
+                bitmasks=[bitmask], lens=[total_len], toprf_pubs=[tp],
+                masks=[wi.mask])
+        else:
+            pub, priv = self.module.witness_inputs([wi.key], infos, ins, outs,
+                                                   self.blocks)
         w = generate_witness(self.define, self.pub_layout, self.priv_layout,
                              pub, priv, batch=1)
         return w[:, 0]

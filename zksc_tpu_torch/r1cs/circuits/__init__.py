@@ -1,3 +1,3 @@
-from . import aes, chacha20
+from . import aes, chacha20, toprf, toprf_variants
 
-__all__ = ["aes", "chacha20"]
+__all__ = ["aes", "chacha20", "toprf", "toprf_variants"]

@@ -1,0 +1,1 @@
+"""Host-only helpers (Keccak-256 for the MiMC constants)."""
