@@ -16,7 +16,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
   2. build: the nvcc builds of the CUDA kernels (csrc/ec_kernels.cu ->
      build/libzksc_ec.so, csrc/msm_kernels.cu -> build/libzksc_msm.so, both
      nvcc processes started together) and the g++ build of the
-     witness-tape library, with their seconds.
+     witness-tape library, with their seconds; then, from ptxas, each
+     kernel instance's registers, stack and spill bytes (K3: lane_kernel
+     and split_kernel, each for Fp and Fp2h).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -25,13 +27,19 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      passes them) on live points of the committed chacha20 proving key
      plus crafted lanes: identity, P = Q affine (the doubling through the
      affine-Q path), re-scaled, P = -Q, Q = O with P affine, and affine
-     and Jacobian Q mixed inside one warp; K3 ladder (G1, G2 x unreduced
-     with per-lane and shared bits, reduced over segments of 64 and of all
-     lanes; N=4,096, 32 bits) with crafted zero and one scalars, identity
-     points, and equal and opposite points on lanes the reduction pairs;
+     and Jacobian Q mixed inside one warp; K3 ladder in both layouts
+     (LANE, SPLIT) x (G1, G2) x (unreduced with per-lane and shared bits,
+     reduced over segments of 64 and of all lanes; N=4,096, 32 bits) with
+     crafted zero and one scalars, identity points, Jacobian points, and
+     equal and opposite points on lanes the reduction pairs, and at the
+     ladder branch's shape (128 lanes x 254 bits, reduced over all 128) in
+     both layouts, the wrapper's choice marked, each with its chain floor;
      each kernel must equal its plain PyTorch version limb for limb. K3
      over 254 bits on 8 lanes must equal curve/bn254_host's scalar
-     products and their sum. K1 and K2 at the digit pattern of 254-bit
+     products and their sum; both K3 layouts are timed over 1,024-65,536
+     lanes x 32 bits (per-lane and shared bits, G1 and G2) beside the
+     wrapper's pick (the crossover), and K3 at the ceremony's shape with a
+     fixed 254-bit scalar beside its bound. K1 and K2 at the digit pattern of 254-bit
      wire scalars: every call of a 13-bit-window bucket MSM (20 windows,
      the top one 7 bits wide) over 4,096 lanes, and of its top window
      alone over 16,384 lanes (almost every bucket empty), G1 and G2,
@@ -76,7 +84,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      128), timed with CUDA events (card-only: a sleep kernel is queued
      first; the host-paced time beside it), and set beside its bound (IMAD
      count or bytes, from these inputs; an add with affine Q counts 11
-     products, G2 three base products per Fp2 product). Then every kernel
+     products, G2 three base products per Fp2 product); a K3 row also
+     names the layout the wrapper picked and its chain floor (the longest
+     warp's product rounds x 258 IMAD x 2 cycles / SM clock). Then every kernel
      call of one warm chacha20 and one warm aes-128-ctr proof is replayed
      in order: per kernel the launches, the summed ms, the summed bound and
      the adds whose Q is affine, which also go into the kernels line;
@@ -121,6 +131,36 @@ def nvidia_smi(query: str) -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str):
+    """[(kernel, registers, stack bytes, spill store bytes, spill load
+    bytes)] of each entry function in nvcc -Xptxas -v output; names
+    demangled by c++filt where it is installed."""
+    import re
+    rows, name, frame = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *frame])
+            name, frame = None, (0, 0, 0)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = n.split("(")[0]
+    except OSError:
+        pass
+    return [tuple(r) for r in rows]
 
 
 def cuda_ms(fn, reps: int, paced: bool = False) -> float:
@@ -366,6 +406,67 @@ def k3_bound_ms(fops, P, bits, n_bits, seg, imad_rate):
     return (*_bound(imad, nbytes, imad_rate), adds + dbls, affine)
 
 
+# The product rounds on a K3 lane's critical path (csrc/msm_kernels.cu): a
+# doubling, and what an add after it adds for an affine / a Jacobian point.
+# LANE runs jac_double and jac_add one product after another; SPLIT runs a
+# round of up to msm_kernels.ROLES products per level of split_step, three
+# for the doubling and three more for the add. A G2 product is two base
+# products per thread; a LANE reduction level one 16-product add.
+K3_ROUNDS = {"LANE": (7, 11, 16), "SPLIT": (3, 3, 3)}
+K3_REDUCE_ROUNDS = 16
+
+
+def k3_layouts():
+    """{layout: name} of K3's layouts (ops/msm_kernels.py)."""
+    from zksc_tpu_torch.ops import msm_kernels
+    return {msm_kernels.LANE: "LANE", msm_kernels.SPLIT: "SPLIT"}
+
+
+def k3_chain_ms(fops, P, bits, n_bits, seg, layout, imad_rate):
+    """The dependency floor of one K3 call in `layout`: the longest warp's
+    chain of product rounds -- a warp runs a doubling at a bit where one of
+    its lanes doubles (every bit below the lane's top set bit) and an
+    addition where one of its lanes adds (every set bit after the top one;
+    both kinds where affine and Jacobian points add) -- plus the LANE
+    reduction's adds (16 products per halving level); each product 258
+    IMAD at 2 issue cycles per warp, over the SM clock (G2: two base
+    products per Fp2 product and thread). Returns (ms, rounds)."""
+    import torch
+    from zksc_tpu_torch.ops import ec, msm_kernels
+    g2 = isinstance(fops, ec.Fp2Ops)
+    n = fops.lane_width(P.x)
+    threads = (2 if g2 else 1) * (msm_kernels.ROLES if layout == msm_kernels.SPLIT
+                                  else 1)                  # per lane
+    per_warp = 32 // threads
+    b = (bits != 0)
+    if b.dim() == 1:
+        b = b[:, None].expand(n_bits, n)
+    k = torch.arange(n_bits, device=b.device)[:, None]
+    top = torch.where(b, k, -1).max(0).values                  # -1: s = 0
+    live = nonid(fops, P) & (top >= 0)
+    aff = z_is_one(P.z[:, :n], P.z[:, n:]) if g2 else z_is_one(P.z)
+    dbl = live & (k < top)                                     # [n_bits, n]
+    add = dbl & b
+    pad = -n % per_warp
+
+    def any_warp(m):                                           # [n_bits, warps]
+        m = torch.nn.functional.pad(m, (0, pad))
+        return m.reshape(n_bits, -1, per_warp).any(2).to(torch.int64)
+    r_dbl, r_aff, r_jac = K3_ROUNDS[k3_layouts()[layout]]
+    chain = (any_warp(dbl) * r_dbl + any_warp(add & aff) * r_aff
+             + any_warp(add & ~aff) * r_jac).sum(0)
+    rounds = int(chain.max().item()) if n else 0
+    s = 1 if seg is None else seg
+    while s > 1:
+        g = min(s, msm_kernels.GROUP)
+        rounds += (g.bit_length() - 1) * K3_REDUCE_ROUNDS
+        s //= g
+    props = torch.cuda.get_device_properties(0)
+    clk_hz = imad_rate / (IMAD_PER_CLK_PER_SM * props.multi_processor_count)
+    mult = 2 if g2 else 1
+    return rounds * mult * IMAD_PER_FP_MUL * 2 / clk_hz * 1e3, rounds
+
+
 # ------------------------------------------------------------- phases
 
 def compare(label: str, run, plain, flat):
@@ -483,7 +584,9 @@ def ladder_inputs(fops, P, n_bits: int, seed: int):
     4 and 68 (and 6 and 38) the same point and scalar, lanes 5 and 69 (and
     7 and 39) opposite points under one scalar: the first reduction round
     adds lane t + 64 to lane t in groups of 128 lanes and lane t + 32 in
-    segments of 64, so these pairs meet as P + P and P + (-P)."""
+    segments of 64, so these pairs meet as P + P and P + (-P); lanes 8-11
+    hold Jacobian representatives (Z != 1) of their points, so the ladder's
+    adds take the 16-product path there."""
     import torch
     from zksc_tpu_torch.fields.limb import Fp
     from zksc_tpu_torch.ops import ec
@@ -514,6 +617,12 @@ def ladder_inputs(fops, P, n_bits: int, seed: int):
     put(69, 5, neg=True)
     put(38, 6)
     put(39, 7, neg=True)
+    lam = 0x2545F4914F6CDD1D
+    lams = [Fp.broadcast_const(pow(lam, e, Fp.p), (1,), device=P.x.device)
+            for e in (2, 3, 1)]
+    jac = [8, 9, 10, 11] + ([n + 8, n + 9, n + 10, n + 11] if g2 else [])
+    for a, l in zip(coords, lams):                  # (l^2 x, l^3 y, l z)
+        a[:, jac] = Fp.mont_mul(a[:, jac], l).to(a.dtype)
     one = Fp.broadcast_const(1, (1,), device=P.x.device)[:, 0]
     for lane in (2, 3):
         coords[0][:, lane] = 0
@@ -526,8 +635,12 @@ def ladder_inputs(fops, P, n_bits: int, seed: int):
 
 
 def check_ladder(g1a, g2h, imad_rate, N=4096, n_bits=32):
-    """Phase 3, K3: kernel vs plain at check sizes, then 254 bits vs the
-    host's scalar products. Returns (max_abs_err, {variant: plain ms})."""
+    """Phase 3, K3: each layout vs plain at check sizes; the ladder branch's
+    shape (128 lanes x 254 bits, reduced) in the layout the wrapper picks
+    there, vs plain; 254 bits vs the host's scalar products; and both
+    layouts timed over lane counts (the crossover behind
+    msm_kernels.SPLIT_MAX_LANES). Returns (max_abs_err, {variant: plain
+    ms})."""
     import random
 
     import torch
@@ -558,19 +671,49 @@ def check_ladder(g1a, g2h, imad_rate, N=4096, n_bits=32):
         torch.cuda.synchronize()
         plain_ms[f"{tag} unreduced shared bits"] = (time.time() - t) * 1e3
         cases.append(("unreduced shared bits", shared, None, want))
-        for label, b, seg, want in cases:
-            got = msm_kernels.ladder(fops, P, b, n_bits, seg)
-            torch.cuda.synchronize()
-            e = max_abs_diff(list(got), list(want))
-            ms = cuda_ms(lambda: msm_kernels.ladder(fops, P, b, n_bits, seg), 5)
-            bound, by, ops, _ = k3_bound_ms(fops, P, b, n_bits, seg, imad_rate)
-            log(f"K3 ladder {tag} {label} N={N} bits={n_bits}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms.get(f'{tag} {label}', 0):.2f} "
-                f"ms, bound {bound:.4f} ms ({by}, {ops} point ops), "
-                f"max_abs_err={e}")
+        for layout, lname in k3_layouts().items():
+            for label, b, seg, want in cases:
+                run = lambda: msm_kernels._ladder(fops, P, b, n_bits, seg, layout)
+                got = run()
+                torch.cuda.synchronize()
+                e = max_abs_diff(list(got), list(want))
+                ms = cuda_ms(run, 5)
+                bound, by, ops, _ = k3_bound_ms(fops, P, b, n_bits, seg, imad_rate)
+                chain, _ = k3_chain_ms(fops, P, b, n_bits, seg, layout, imad_rate)
+                log(f"K3 ladder {tag} {lname} {label} N={N} bits={n_bits}: "
+                    f"kernel {ms:.4f} ms, plain "
+                    f"{plain_ms.get(f'{tag} {label}', 0):.2f} ms, bound "
+                    f"{bound:.4f} ms ({by}, {ops} point ops), chain floor "
+                    f"{chain:.4f} ms, max_abs_err={e}")
+                if e:
+                    raise AssertionError(f"K3 {tag} {lname} {label}: kernel != plain")
+                err = max(err, e)
+
+    # the ladder branch's shape: one 128-lane MSM of 254-bit scalars
+    for g2 in (False, True):
+        fops = ec.G2_OPS if g2 else ec.G1_OPS
+        tag = "G2" if g2 else "G1"
+        P = g2_lanes(g2h, 0, 128) if g2 else g1_lanes(g1a, 0, 128)
+        P, bits = ladder_inputs(fops, P, 254, seed=13 + g2)
+        layout = msm_kernels._layout(128)
+        t = time.time()
+        want = msm_kernels.ladder_plain(fops, P, bits, 254, 128)
+        torch.cuda.synchronize()
+        plain_ms[f"{tag} reduced 128x254"] = (time.time() - t) * 1e3
+        bound, by, ops, _ = k3_bound_ms(fops, P, bits, 254, 128, imad_rate)
+        for lay, lname in k3_layouts().items():
+            run = lambda: msm_kernels._ladder(fops, P, bits, 254, 128, lay)
+            e = max_abs_diff(list(run()), list(want))
+            ms = cuda_ms(run, 5)
+            chain, rounds = k3_chain_ms(fops, P, bits, 254, 128, lay,
+                                        imad_rate)
+            log(f"K3 ladder {tag} {lname}{' (chosen)' if lay == layout else ''}"
+                f" reduced N=128 bits=254: kernel {ms:.4f} ms, plain "
+                f"{plain_ms[f'{tag} reduced 128x254']:.2f} ms, bound "
+                f"{bound:.4f} ms ({by}, {ops} point ops), chain floor "
+                f"{chain:.4f} ms ({rounds} product rounds), max_abs_err={e}")
             if e:
-                raise AssertionError(f"K3 {tag} {label}: kernel != plain")
-            err = max(err, e)
+                raise AssertionError(f"K3 {tag} {lname} 128 x 254: kernel != plain")
 
     # 254-bit ladders on 8 lanes against the host's scalar products
     rnd = random.Random(17)
@@ -596,7 +739,56 @@ def check_ladder(g1a, g2h, imad_rate, N=4096, n_bits=32):
                                  "!= bn254_host")
         log(f"K3 ladder {'G2' if g2 else 'G1'} 254 bits x 8 lanes == "
             "bn254_host (each lane and the sum)")
+    sweep_ladder_layouts(g1a, g2h, imad_rate)
     return err, plain_ms
+
+
+def sweep_ladder_layouts(g1a, g2h, imad_rate,
+                         sizes=((32, (1024, 4096, 8192, 16384, 32768, 65536)),
+                                (254, (8192, 16384)))):
+    """Phase 3: every K3 layout's card time (CUDA events) over lane counts,
+    per-lane and shared bits, G1 and G2, unreduced, at 32 bits and, near
+    the crossover, at the 254 bits of every real K3 call: the crossover
+    behind msm_kernels.SPLIT_MAX_LANES, which the wrapper's choice is
+    logged beside. Then the ceremony's shape (262,144 G1 lanes, one
+    254-bit scalar) with a fixed scalar: a contribution draws its scalar
+    afresh, so phase 5's time of it moves with that scalar's bits between
+    runs."""
+    import random
+
+    import torch
+    from zksc_tpu_torch.ops import ec, msm_kernels
+    layouts = k3_layouts()
+    gen = torch.Generator().manual_seed(29)
+    for n_bits, lane_counts in sizes:
+        for g2 in (False, True):
+            fops = ec.G2_OPS if g2 else ec.G1_OPS
+            for n in lane_counts:
+                P = g2_lanes(g2h, 0, n) if g2 else g1_lanes(g1a, 0, n)
+                bits = torch.randint(0, 2, (n_bits, n), generator=gen,
+                                     dtype=torch.int32).to(P.x.device)
+                for form, b in (("per-lane", bits),
+                                ("shared", bits[:, 0].contiguous())):
+                    times = {name: cuda_ms(lambda: msm_kernels._ladder(
+                        fops, P, b, n_bits, None, lay), 3)
+                        for lay, name in layouts.items()}
+                    pick = layouts[msm_kernels._layout(n)]
+                    log(f"K3 layout sweep {'G2' if g2 else 'G1'} N={n} "
+                        f"bits={n_bits} {form}: " + ", ".join(
+                            f"{k} {v:.4f} ms" for k, v in times.items())
+                        + f"; wrapper picks {pick}")
+    n = 1 << 18
+    P = g1_lanes(g1a, 0, n)
+    scalar = random.Random(31).randrange(1, 1 << 254)
+    b = torch.tensor([(scalar >> i) & 1 for i in range(254)], dtype=torch.int32,
+                     device=P.x.device)
+    lay = msm_kernels._layout(n)
+    ms = cuda_ms(lambda: msm_kernels._ladder(ec.G1_OPS, P, b, 254, None, lay), 3)
+    bound, by, ops, affine = k3_bound_ms(ec.G1_OPS, P, b, 254, None, imad_rate)
+    log(f"K3 ceremony shape G1 N={n} bits=254, fixed scalar ({int(b.sum())} set "
+        f"bits), {layouts[lay]}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}, {ops} point ops, {affine} with affine Q), "
+        f"{100 * bound / ms:.1f}% of the time")
 
 
 def check_wide_windows(g1a, g2h, n=4096, n_top=16384):
@@ -771,12 +963,17 @@ def time_kernels(calls, imad_rate, path: str):
         run = lambda: kern(fops, *args)
         tag = "G2" if g2 else "G1"
         bound, by, ops, affine = bound_of(name, fops, args, imad_rate)
+        extra = {}
         if name == "ladder":
             P, bits, n_bits = args[:3]
             seg = args[3] if len(args) > 3 else None
             n = fops.lane_width(P.x)
             shape = f"N={n} bits={n_bits}" + ("" if seg is None else f" seg={seg}")
             label = f"{tag} {flag}"
+            layout = msm_kernels._layout(n)
+            chain, rounds = k3_chain_ms(fops, P, bits, n_bits, seg, layout,
+                                        imad_rate)
+            extra = {"layout": k3_layouts()[layout]}
         elif name == "chunk_scan":
             shape = f"S={args[1]} C={ec_kernels._lanes(fops, args[0].x) // args[1]}"
             label = f"{tag} inclusive={flag}"
@@ -811,11 +1008,14 @@ def time_kernels(calls, imad_rate, path: str):
             f"ms paced by the host), plain "
             f"{'not run at this size' if plain_ms is None else f'{plain_ms:.2f} ms'}"
             f", bound {bound:.4f} ms ({by}, {ops} point ops, {affine} with "
-            f"affine Q), max_abs_err={err}")
+            f"affine Q)" + (f", layout {extra['layout']}, chain floor "
+                            f"{chain:.4f} ms ({rounds} product rounds)"
+                            if extra else "")
+            + f", max_abs_err={err}")
         rows.append({"name": name, "path": path, "variant": label,
                      "shape": shape, "ms": ms, "paced_ms": paced,
                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "ops_needed": ops,
-                     "affine_q_adds": affine, "max_abs_err": err})
+                     "affine_q_adds": affine, "max_abs_err": err, **extra})
     return rows
 
 
@@ -1243,10 +1443,14 @@ def main(argv) -> int:
     from zksc_tpu_torch.native import tape_lib
     from zksc_tpu_torch.ops import cuda_build, ec_kernels, msm_kernels
     t = time.time()
-    nvcc_s = cuda_build.build(verbose=True)
+    nvcc = cuda_build.build(verbose=True)
     log(f"phase 2 build: nvcc " + ", ".join(
-        f"{cuda_build.LIBS[k][2]} {v:.2f} s" for k, v in nvcc_s.items())
+        f"{cuda_build.LIBS[k][2]} {s:.2f} s" for k, (s, _) in nvcc.items())
         + f" (wall {time.time() - t:.2f} s)")
+    for lib, (_, log_text) in sorted(nvcc.items()):
+        for kernel, regs, stack, spill_st, spill_ld in ptxas_summary(log_text):
+            log(f"phase 2 {lib} {kernel}: {regs} registers, {stack} B stack, "
+                f"spill {spill_st} B stores / {spill_ld} B loads")
     t = time.time()
     if tape_lib() is None:
         raise RuntimeError("g++ build of the witness-tape library failed")

@@ -6,7 +6,8 @@ built with g++: each PTX asm block becomes C++ with an explicit carry flag
 with .cc), each <<<grid, block>>> launch runs its blocks one after another
 with one std::thread per CUDA thread, and __shfl_xor_sync / __syncthreads
 become barriers between those threads (a lane pair's shuffle waits for both
-threads, as the pair mask says). The wrappers' launch paths
+threads, as the pair mask says; __shfl_sync and __any_sync wait for the
+threads their mask names). The wrappers' launch paths
 (ec_kernels._launch_*, msm_kernels._launch) then drive the emulated library
 on CPU tensors, and every output is held to the kernel's plain PyTorch
 version limb for limb, on crafted lanes (chip_smoke.craft: identity,
@@ -39,7 +40,9 @@ SHIM = r'''
 #include <cstdio>
 #include <cstdlib>
 #include <functional>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __device__
@@ -63,6 +66,8 @@ template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { 
 struct BlockCtx {
   std::unique_ptr<std::barrier<>> all;
   std::vector<std::unique_ptr<std::barrier<>>> pairs;
+  std::mutex mu;
+  std::map<std::pair<unsigned, unsigned>, std::unique_ptr<std::barrier<>>> groups;
   std::vector<uint64_t> slot;
   std::vector<char> smem;
 };
@@ -75,6 +80,34 @@ template <class T> inline T __shfl_xor_sync(unsigned mask, T v, int lanemask) {
   g_blk->slot[t] = (uint64_t)v;
   b.arrive_and_wait();
   T r = (T)g_blk->slot[t ^ 1u];
+  b.arrive_and_wait();
+  return r;
+}
+// the threads of one warp that `mask` names meet at a barrier of their own
+inline std::barrier<>& group_barrier(unsigned mask) {
+  std::lock_guard<std::mutex> lock(g_blk->mu);
+  auto& b = g_blk->groups[{threadIdx.x / 32u, mask}];
+  if (!b) b = std::make_unique<std::barrier<>>(__builtin_popcount(mask));
+  return *b;
+}
+template <class T> inline T __shfl_sync(unsigned mask, T v, int src) {
+  const unsigned t = threadIdx.x;
+  if (!((mask >> (t & 31u)) & 1u) || !((mask >> src) & 1u)) { fprintf(stderr, "unexpected shuffle\n"); abort(); }
+  auto& b = group_barrier(mask);
+  g_blk->slot[t] = (uint64_t)v;
+  b.arrive_and_wait();
+  T r = (T)g_blk->slot[(t & ~31u) + (unsigned)src];
+  b.arrive_and_wait();
+  return r;
+}
+inline bool __any_sync(unsigned mask, bool p) {
+  const unsigned t = threadIdx.x;
+  auto& b = group_barrier(mask);
+  g_blk->slot[t] = p;
+  b.arrive_and_wait();
+  bool r = false;
+  for (unsigned i = 0; i < 32; ++i)
+    if ((mask >> i) & 1u) r = r || g_blk->slot[(t & ~31u) + i] != 0;
   b.arrive_and_wait();
   return r;
 }
@@ -263,17 +296,66 @@ def test_k1_emulated(kernels, points, g2, inclusive):
         _equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("layout", ["LANE", "SPLIT"])
 @pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
-def test_k3_emulated(kernels, points, g2):
-    """K3 over 128 lanes x 10 bits (chip_smoke.ladder_inputs: zero and one
-    scalars, identity points, equal and opposite points meeting in the
-    reduction), unreduced and reduced over segments of 64."""
+def test_k3_emulated(kernels, points, g2, layout):
+    """K3 in each layout over 128 lanes x 10 bits (chip_smoke.ladder_inputs:
+    zero and one scalars, identity points, Jacobian points, equal and
+    opposite points meeting in the reduction), with per-lane and shared
+    bits, unreduced and reduced over segments of 64 and of all 128 lanes
+    (SPLIT: a LANE relaunch reduces); then unreduced over 101 lanes, which
+    leaves a partial last warp in every layout (SPLIT: 8 lanes a G1 warp,
+    4 a G2 warp; its idle lane groups return before any shuffle)."""
     fops = _fops(g2)
+    lay = getattr(msm_kernels, layout)
     g1a, _, g2h = points
     P = chip_smoke.g2_lanes(g2h, 0, 128) if g2 else chip_smoke.g1_lanes(g1a, 0, 128)
     P, bits = chip_smoke.ladder_inputs(fops, P, 10, seed=11)
-    for group in (1, 64):
-        got = msm_kernels._launch(fops, P, bits, 10, True, group)
-        want = msm_kernels.ladder_plain(fops, P, bits, 10,
-                                        None if group == 1 else group)
-        _equal(got, want)
+    shared = bits[:, 7].contiguous()
+    for b, seg in ((bits, None), (bits, 64), (bits, 128), (shared, None)):
+        got = msm_kernels._ladder(fops, P, b, 10, seg, lay)
+        _equal(got, msm_kernels.ladder_plain(fops, P, b, 10, seg))
+    P, b = _cut(fops, P, 101), bits[:, :101].contiguous()
+    _equal(msm_kernels._ladder(fops, P, b, 10, None, lay),
+           msm_kernels.ladder_plain(fops, P, b, 10))
+
+
+def test_k3_layout_by_shape(monkeypatch):
+    """The wrapper picks K3's layout from the lane count alone: SPLIT for
+    the ladder branch's 128-lane MSMs and up to SPLIT_MAX_LANES, LANE for
+    the ceremony's 2^16-2^18 lanes;
+    a reduced SPLIT ladder is one unreduced SPLIT launch and LANE
+    relaunches over groups of up to 128 lanes, a reduced LANE ladder
+    reduces its first group in the ladder launch."""
+    plan = []
+
+    def fake_launch(fops, P, bits, n_bits, run_ladder, group, layout=0):
+        plan.append((layout, group, run_ladder))
+        return P
+    monkeypatch.setattr(msm_kernels, "_launch", fake_launch)
+    LANE, SPLIT = msm_kernels.LANE, msm_kernels.SPLIT
+    top = msm_kernels.SPLIT_MAX_LANES
+    for n, want in ((1, SPLIT), (128, SPLIT), (top, SPLIT), (top + 1, LANE),
+                    (1 << 16, LANE), (1 << 18, LANE)):
+        assert msm_kernels._layout(n) == want
+    for layout, seg, want in (
+            (SPLIT, 128, [(SPLIT, 1, True), (LANE, 128, False)]),
+            (SPLIT, 4096, [(SPLIT, 1, True), (LANE, 128, False), (LANE, 32, False)]),
+            (SPLIT, None, [(SPLIT, 1, True)]),
+            (LANE, 128, [(LANE, 128, True)]),
+            (LANE, 4096, [(LANE, 128, True), (LANE, 32, False)]),
+            (LANE, None, [(LANE, 1, True)])):
+        plan.clear()
+        msm_kernels._ladder(ec.G1_OPS, None, None, 254, seg, layout)
+        assert plan == want
+
+
+@pytest.mark.parametrize("name, constant", [("GROUP", "kLaneLanes"),
+                                            ("ROLES", "kRoles")])
+def test_k3_constants_match_source(name, constant):
+    """The wrapper's copies of K3's constants (the reduction group, the
+    threads per SPLIT lane that chip_smoke's chain floor counts) are the
+    kernel's own."""
+    src = open(os.path.join(CSRC, "msm_kernels.cu")).read()
+    m = re.search(rf"constexpr int {constant} = (\d+);", src)
+    assert m and int(m.group(1)) == getattr(msm_kernels, name)

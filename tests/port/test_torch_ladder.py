@@ -133,10 +133,10 @@ def test_scale_points_matches_host(g2):
 
 
 def test_grouped_reduce_levels(monkeypatch):
-    """K3 reduces a segment longer than its block in levels: with the block
+    """K3 reduces a segment longer than its group in levels: with the group
     cut to 4 lanes, a 16-lane segment takes two levels, which give the same
     point as one halving tree over the segment (another order), and with a
-    block of at least the segment the very same limbs."""
+    group of at least the segment the very same limbs."""
     pts = _points(False, 16, 9)
     P = _to_dev(pts, False)
     tree = tec.jac_tree_reduce(tec.G1_OPS, P)
@@ -144,7 +144,7 @@ def test_grouped_reduce_levels(monkeypatch):
     same = msm_kernels._grouped_reduce(tec.G1_OPS, P, 16)
     for a, b in zip(tree, same):
         assert torch.equal(a, b)
-    monkeypatch.setattr(msm_kernels, "BLOCK", 4)
+    monkeypatch.setattr(msm_kernels, "GROUP", 4)
     two_level = msm_kernels._grouped_reduce(tec.G1_OPS, P, 16)
     assert _affine(two_level, False) == _affine(tree, False)
     halves = tec._segment_reduce(tec.G1_OPS, P, 8)

@@ -20,15 +20,15 @@
 //    so ptxas schedules the independent products of a point formula (Z1Z1
 //    with U2's operands, HH with rr, ...) side by side and an add costs
 //    its critical path, not the sum of its products.
-//  - Two Fp2 types. Fp2 holds both components in one thread (Karatsuba,
-//    three base products: K3). Fp2h is one component per thread of an
-//    adjacent lane pair (even thread c0, odd thread c1): add and sub are per
-//    component, a product is the schoolbook pair c0 = a0 b0 - a1 b1 (even),
+//  - Fp2 as Fp2h: one component per thread of an adjacent lane pair
+//    (even thread c0, odd thread c1): add and sub are per component, a
+//    product is the schoolbook pair c0 = a0 b0 - a1 b1 (even),
 //    c1 = a0 b1 + a1 b0 (odd) with the partner's operands fetched by
 //    __shfl_xor_sync(pair, ., 1): two base products per thread, and half
-//    the registers of Fp2 (K1, K2). All residues are canonical, so both
-//    equal the plain path's Karatsuba limb for limb. Zero and one tests
-//    combine both threads, so every branch is uniform over the pair.
+//    the registers of an Fp2 held in one thread (K1, K2, K3). All residues
+//    are canonical, so it equals the plain path's Karatsuba limb for limb.
+//    Zero and one tests combine both threads, so every branch is uniform
+//    over the pair.
 //  - jac_add returns P or Q outright where the other is the identity, and
 //    skips the five products by Z2 where Q is affine (Z2 = Montgomery one:
 //    Z2Z2 = 1, U1 = X1, S1 = Y1, Z1 Z2 = Z1; 11 products instead of 16): a
@@ -233,15 +233,9 @@ __device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b) {
   return fp_reduce_once(r);
 }
 
-// ---- Fp2 = Fp[i]/(i^2 + 1), both components in one thread (K3)
-
-struct Fp2 {
-  Fp c0, c1;
-};
-
-// ---- Fp2h: one component of an Fp2 per thread of an adjacent lane pair
-// (threads 2k, 2k + 1 of a warp; the even one holds c0). Callers keep both
-// threads of a pair on the same path.
+// ---- Fp2h: one component of an Fp2 = Fp[i]/(i^2 + 1) per thread of an
+// adjacent lane pair (threads 2k, 2k + 1 of a warp; the even one holds c0).
+// Callers keep both threads of a pair on the same path.
 
 struct Fp2h {
   Fp v;
@@ -272,27 +266,6 @@ __device__ __forceinline__ bool f_is_zero(const Fp& a) { return fp_is_zero(a); }
 __device__ __forceinline__ bool f_is_one(const Fp& a) { return fp_is_one(a); }
 __device__ __forceinline__ void f_set_one(Fp& a) { a = fp_one(); }
 __device__ __forceinline__ void f_set_zero(Fp& a) { a = fp_zero(); }
-
-__device__ __forceinline__ Fp2 f_add(const Fp2& a, const Fp2& b) {
-  return {fp_add(a.c0, b.c0), fp_add(a.c1, b.c1)};
-}
-__device__ __forceinline__ Fp2 f_sub(const Fp2& a, const Fp2& b) {
-  return {fp_sub(a.c0, b.c0), fp_sub(a.c1, b.c1)};
-}
-__device__ __forceinline__ Fp2 f_mul(const Fp2& a, const Fp2& b) {
-  const Fp t0 = fp_mul(a.c0, b.c0);
-  const Fp t1 = fp_mul(a.c1, b.c1);
-  const Fp t2 = fp_mul(fp_add(a.c0, a.c1), fp_add(b.c0, b.c1));
-  return {fp_sub(t0, t1), fp_sub(fp_sub(t2, t0), t1)};
-}
-__device__ __forceinline__ bool f_is_zero(const Fp2& a) {
-  return fp_is_zero(a.c0) && fp_is_zero(a.c1);
-}
-__device__ __forceinline__ bool f_is_one(const Fp2& a) {
-  return fp_is_one(a.c0) && fp_is_zero(a.c1);
-}
-__device__ __forceinline__ void f_set_one(Fp2& a) { a.c0 = fp_one(); a.c1 = fp_zero(); }
-__device__ __forceinline__ void f_set_zero(Fp2& a) { a.c0 = fp_zero(); a.c1 = fp_zero(); }
 
 __device__ __forceinline__ Fp2h f_add(const Fp2h& a, const Fp2h& b) { return {fp_add(a.v, b.v)}; }
 __device__ __forceinline__ Fp2h f_sub(const Fp2h& a, const Fp2h& b) { return {fp_sub(a.v, b.v)}; }
@@ -427,19 +400,11 @@ __device__ __forceinline__ void store_fp(uint32_t* a, size_t idx, size_t ld, con
 __device__ __forceinline__ void load_coord(Fp& f, const InArrs& a, int c, size_t idx) {
   f = load_fp(a.p[c], idx, (size_t)a.ld);
 }
-__device__ __forceinline__ void load_coord(Fp2& f, const InArrs& a, int c, size_t idx) {
-  f.c0 = load_fp(a.p[2 * c], idx, (size_t)a.ld);
-  f.c1 = load_fp(a.p[2 * c + 1], idx, (size_t)a.ld);
-}
 __device__ __forceinline__ void load_coord(Fp2h& f, const InArrs& a, int c, size_t idx) {
   f.v = load_fp(pair_odd() ? a.p[2 * c + 1] : a.p[2 * c], idx, (size_t)a.ld);
 }
 __device__ __forceinline__ void store_coord(const OutArrs& a, int c, size_t idx, const Fp& f) {
   store_fp(a.p[c], idx, (size_t)a.ld, f);
-}
-__device__ __forceinline__ void store_coord(const OutArrs& a, int c, size_t idx, const Fp2& f) {
-  store_fp(a.p[2 * c], idx, (size_t)a.ld, f.c0);
-  store_fp(a.p[2 * c + 1], idx, (size_t)a.ld, f.c1);
 }
 __device__ __forceinline__ void store_coord(const OutArrs& a, int c, size_t idx, const Fp2h& f) {
   store_fp(pair_odd() ? a.p[2 * c + 1] : a.p[2 * c], idx, (size_t)a.ld, f.v);

@@ -55,13 +55,15 @@ def _nvcc() -> str:
 
 def build(names=None, verbose: bool = False) -> dict:
     """Compile the named libraries (default: all) that are missing or stale,
-    all nvcc processes running together. Returns {name: seconds in nvcc}
-    (0.0 for a library that was up to date); raises if a build fails."""
+    all nvcc processes running together. Returns {name: (seconds in nvcc,
+    nvcc's output)} ((0.0, "") for a library that was up to date); raises
+    if a build fails. verbose adds ``-Xptxas -v`` (registers and spill of
+    every kernel) and prints the output."""
     names = list(LIBS) if names is None else list(names)
     todo = [n for n in names if _stale(n)]
-    secs = {n: 0.0 for n in names}
+    res = {n: (0.0, "") for n in names}
     if not todo:
-        return secs
+        return res
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for n in todo:
@@ -79,20 +81,20 @@ def build(names=None, verbose: bool = False) -> dict:
             if proc.poll() is None:
                 continue
             pending.discard(n)
-            secs[n] = time.time() - t0
             log.seek(0)
             out = log.read()
             log.close()
+            res[n] = (time.time() - t0, out)
             if proc.returncode != 0:
                 failed.append(f"{LIBS[n][0]} ({proc.returncode}):\n{out}")
                 continue
             if verbose:
-                print(f"--- nvcc {LIBS[n][0]}: {secs[n]:.2f} s\n{out}", flush=True)
+                print(f"--- nvcc {LIBS[n][0]}: {res[n][0]:.2f} s\n{out}", flush=True)
             os.replace(tmp, lib_path(n))
         time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    return secs
+    return res
 
 
 def load(name: str, declare) -> ctypes.CDLL:
