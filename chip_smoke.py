@@ -14,11 +14,13 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
   1. environment: torch / CUDA versions, the card, nvidia-smi name and
      power limit; fails without CUDA.
   2. build: the nvcc builds of the CUDA kernels (csrc/ec_kernels.cu ->
-     build/libzksc_ec.so, csrc/msm_kernels.cu -> build/libzksc_msm.so, both
-     nvcc processes started together) and the g++ build of the
-     witness-tape library, with their seconds; then, from ptxas, each
-     kernel instance's registers, stack and spill bytes (K3: lane_kernel
-     and split_kernel, each for Fp and Fp2h).
+     build/libzksc_ec.so, csrc/msm_kernels.cu -> build/libzksc_msm.so,
+     csrc/stark_kernels.cu -> build/libzksc_stark.so, the nvcc processes
+     started together) and the g++ build of the witness-tape library, with
+     their seconds; then, from ptxas, each kernel instance's registers,
+     stack and spill bytes (K3: lane_kernel and split_kernel, each for Fp
+     and Fp2h; K7a blake2s_kernel, K7b circle_layer_kernel<interp, rev>,
+     K7c composition_kernel and composition_finish_kernel).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -45,6 +47,15 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      alone over 16,384 lanes (almost every bucket empty), G1 and G2,
      equal to the plain versions; and torch.sort(stable=True) over the 20
      x 131,072 keys of that shape gives the stable permutation.
+     The stark kernels, each equal to its plain version value for value:
+     K7a Blake2s over 2,048 messages of 0, 1, 63, 64, 65 and 129,024 bytes
+     read as the columns of a [words, 2,048] tensor (and equal to hashlib
+     on four of them), and as the pair hash over 2^17 nodes; K7b
+     interpolate and evaluate at log N = 3, 6, 8, 10, 11, 16, 20 over 1
+     column and over min(4,096, 2^28 / N) columns, with the round trip;
+     K7c at M = 1,024 on the chacha20 AIR's index groups with random
+     values. Then the Merkle crossover: one layer of 4-4,096 node pairs or
+     16-byte leaves by hashlib and by K7a (with its copies), host clock.
   4. main path at full size: api.generate_proof("chacha20", ...) twice on
      a 128-byte chunk with the committed artifacts/chacha20 key (45,217
      wires, domain 2^16); api.verify_proof must accept it and reject a
@@ -76,8 +87,19 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      warm proof, whose envelope carries no plaintext, and rejects a
      flipped ciphertext byte, the TOPRF output plus one and the other
      share's response.
+  9. the stark engine (chacha20, Circle STARK over M31): api.generate_proof(
+     "chacha20", ..., engine="stark") on a 128-byte chunk, cold, warm (the
+     launch counters reset just before it, K7a, K7b and K7c must all be >
+     0; stage seconds and peak device memory) and once more for phase 5;
+     api.verify_proof(..., engine="stark") accepts it and rejects a flipped
+     ciphertext byte and a flipped byte inside the bincode payload;
+     stark.prover.prove_stream on a 16 KiB record (256 blocks) twice (the
+     second with the same checks) and once more for phase 5, and
+     verify_stream; the 128-byte chunk proved on the card and on the CPU
+     (plain versions, hashlib) under one seeded rand_bytes: the two
+     envelopes must be equal byte for byte.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
-     6, 7 and 8): the first of the largest inputs each kernel variant got in
+     6, 7, 8 and 9): the first of the largest inputs each kernel variant got in
      each path is replayed through the kernel and its plain version (equal
      limb for limb; for K3 over more than 128 lanes the plain version runs
      on a sample of an unreduced input's lanes that reaches every block of
@@ -90,7 +112,12 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      call of one warm chacha20 and one warm aes-128-ctr proof is replayed
      in order: per kernel the launches, the summed ms, the summed bound and
      the adds whose Q is affine, which also go into the kernels line;
-     likewise for the recorded chacha20-toprf proof of phase 8.
+     likewise for the recorded chacha20-toprf proof of phase 8. For the
+     stark engine's two warm proofs of phase 9: the largest call of each K7
+     instance replayed through the kernel and its plain version (equal),
+     timed and set beside its bound (the larger of integer operations over
+     the card's rate and the bytes read once and written once over HBM),
+     then every K7 call of each proof, summed per kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
@@ -1140,8 +1167,8 @@ def drive_aes(api, reset_counts, counts, rec) -> dict:
     launches = counts()
     log(f"phase 6 launches over keygen, ceremony and both proofs: {launches}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("chunk_scan", "jac_add_n", "ladder"):
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the AES path")
     t = time.time()
     ok = api.verify_proof(env, ct, iv, device="cuda")
@@ -1388,6 +1415,417 @@ def drive_ladder_branch(reset_counts, counts) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- the stark engine
+
+STARK_SEED = 20242        # seed of phase 9's inputs and blinding bytes
+K7_REPLACES = {"blake2s": "zksc_tpu/stark/blake2s.py:79",
+               "circle_layer": "zksc_tpu/stark/circle.py:104",
+               "composition": "zksc_tpu/stark/prover.py:236"}
+# integer instructions per Blake2s compression, each issued at the integer
+# rate: a G is 4 IADD3 (a + b + m is one IADD3 on sm_90, c + d another), 4
+# LOP3 (the xors) and 4 SHF / PRMT (the rotates); 10 rounds x 8 G, plus the
+# 8 LOP3 of the feed-forward h ^ v[i] ^ v[i + 8]
+BLAKE2S_OPS = 10 * 8 * 12 + 8
+# issue slots of an M31 product (a wide multiply, two folds, a select) and
+# of an M31 add or subtract (add, compare, select)
+M31_MUL_OPS, M31_ADD_OPS = 10, 3
+# M31 products per constraint of each group of the chacha20 AIR
+K7C_PRODUCTS = (1, 0, 1, 1, 1)
+
+
+def seeded_bytes(seed: int):
+    """rand_bytes for prove_stream: n -> n bytes from a seeded generator."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+def k7_bound_ms(name, args, imad_rate):
+    """(bound ms, bound_by, work) of one K7 call from its arguments: the
+    larger of the operations over the card's integer rate and the bytes
+    (inputs read once, outputs written once) over HBM."""
+    if name == "blake2s":
+        base, count, length = args[:3]
+        blocks = count * max(1, -(-length // 64))
+        nbytes = count * 4 * (-(-length // 4)) + 32 * count
+        bound, by = _bound(blocks * BLAKE2S_OPS, nbytes, imad_rate)
+        return bound, by, f"{blocks} compressions"
+    if name == "circle_layer":
+        src, interp = args[0], args[1]
+        flies = src.numel() // 2
+        ops = flies * ((3 * M31_MUL_OPS + 2 * M31_ADD_OPS) if interp
+                       else (M31_MUL_OPS + 2 * M31_ADD_OPS))
+        bound, by = _bound(ops, 8 * src.numel() + 4 * args[4].numel(), imad_rate)
+        return bound, by, f"{flies} butterflies"
+    vals, idx, off, n, weights = args[:5]
+    M = vals.shape[1]
+    ops = M * sum(k * (p * M31_MUL_OPS + 4 * M31_ADD_OPS + 4 * (M31_MUL_OPS - 2))
+                  for k, p in zip(n, K7C_PRODUCTS))
+    nbytes = 4 * (vals.numel() + idx.numel() + weights.numel() + M + 4 * M)
+    bound, by = _bound(ops, nbytes, imad_rate)
+    gathers = idx.numel() * M
+    return bound, by, (f"{sum(n)} constraints x {M} points, {gathers} "
+                       f"gathers ({4 * gathers / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                       f"of HBM if every gather missed the caches)")
+
+
+def k7_variant(name, args) -> str:
+    if name == "blake2s":
+        base, count, length, ms, ws = args[:5]
+        kind = ("columns" if ms == 1 and ws > 1 else
+                "pairs" if (length, ms) == (64, 16) else "rows")
+        return f"{kind} {count} x {length} B"
+    if name == "circle_layer":
+        src, interp, rev, log_w = args[:4]
+        form = ("interpolate" if interp else "evaluate") + (
+            " x-fold" if rev else " y-fold")
+        return f"{form} [{src.shape[0]}, {src.shape[1]}]"
+    return f"M={args[0].shape[1]} R={args[0].shape[0]}"
+
+
+def k7_plain(name, args):
+    """The plain version of one K7 call on the same inputs."""
+    from zksc_tpu_torch.stark import blake2s, chacha_air, circle, prover
+    if name == "blake2s":
+        return blake2s.hash_strided_plain(*args)
+    if name == "circle_layer":
+        return circle.layer_plain(*args)
+    vals, idx, off, n, weights, vn_inv = args[:6]
+    return prover._composition_plain(vals, chacha_air.layout()[1], weights,
+                                     vn_inv)
+
+
+class StarkRecorder:
+    """Wraps stark_kernels' three launchers (the wrapped functions run
+    unchanged); while `window` is set it keeps every call, in order, with
+    its arguments (`log`), holding its inputs."""
+
+    NAMES = ("blake2s", "circle_layer", "composition")
+
+    def __init__(self):
+        from zksc_tpu_torch.ops import stark_kernels
+        self.mod = stark_kernels
+        self.orig = {n: getattr(stark_kernels, n) for n in self.NAMES}
+        self.log = []
+        self.window = False
+
+    def __enter__(self):
+        for name in self.NAMES:
+            def call(*args, _name=name, _fn=self.orig[name]):
+                if self.window:
+                    self.log.append((_name, args))
+                return _fn(*args)
+            setattr(self.mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            setattr(self.mod, name, self.orig[name])
+
+
+def check_stark_kernels(device):
+    """Phase 3 for K7a, K7b and K7c: each equal to its plain version on the
+    card, value for value (K7a also to hashlib on a sample). Returns the
+    max_abs_err (0)."""
+    import hashlib
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.stark import blake2s, chacha_air, circle, prover
+    rng = np.random.default_rng(STARK_SEED)
+    m31 = lambda *s: torch.from_numpy(rng.integers(0, (1 << 31) - 1, s)
+                                      .astype(np.int32)).to(device)
+    words = lambda *s: torch.from_numpy(rng.integers(-2**31, 2**31, s)
+                                        .astype(np.int32)).to(device)
+    err = 0
+    B = 2048
+    for length in (0, 1, 63, 64, 65, 129024):
+        nw = max(1, -(-length // 4))
+        src = words(nw, B)            # message i is column i: strided
+        run = lambda: stark_kernels.blake2s(src, B, length, 1, B)
+        ms, plain_ms, e = compare(
+            f"K7a {B} x {length} B", run,
+            lambda: blake2s.hash_strided_plain(src, B, length, 1, B),
+            lambda r: [r])
+        host, got = src.cpu().numpy(), run().cpu().numpy()
+        for i in (0, 1, B // 2, B - 1):
+            want = hashlib.blake2s(np.ascontiguousarray(host[:, i]).tobytes()
+                                   [:length], digest_size=32).digest()
+            if got[i].tobytes() != want:
+                raise AssertionError(f"K7a {length} B: message {i} != hashlib")
+        log(f"phase 3 K7a blake2s {B} messages x {length} B (word stride "
+            f"{B}): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal, and "
+            f"equal to hashlib on 4 messages")
+        err = max(err, e)
+    cur = words(1 << 18, 8)
+    ms, plain_ms, e = compare(
+        "K7a pairs", lambda: stark_kernels.blake2s(cur, 1 << 17, 64, 16, 1),
+        lambda: blake2s.hash_strided_plain(cur, 1 << 17, 64, 16, 1),
+        lambda r: [r])
+    log(f"phase 3 K7a pair hash over 2^17 nodes: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, equal")
+    err = max(err, e)
+    for log_n in (3, 6, 8, 10, 11, 16, 20):
+        fft = circle.CircleFFT(log_n)
+        for C in (1, min(4096, (1 << 28) >> log_n)):
+            x = m31(C, 1 << log_n)
+            for what, run, plain in (
+                    ("interpolate", lambda: fft.interpolate(x),
+                     lambda: fft.interpolate_plain(x)),
+                    ("evaluate", lambda: fft.evaluate(x),
+                     lambda: fft.evaluate_plain(x))):
+                ms, plain_ms, e = compare(f"K7b {what} 2^{log_n} x {C}", run,
+                                          plain, lambda r: [r])
+                err = max(err, e)
+                log(f"phase 3 K7b {what} [{C}, 2^{log_n}]: kernel {ms:.4f} ms "
+                    f"({log_n} launches), plain {plain_ms:.1f} ms, equal")
+            if not torch.equal(fft.evaluate(fft.interpolate(x)), x):
+                raise AssertionError(f"K7b round trip 2^{log_n} x {C}")
+        del fft, x
+    n_comm, groups = chacha_air.layout()
+    R, M = n_comm + chacha_air.N_PUBLIC + 1, 1024
+    vals, vn_inv = m31(R, M), m31(M)
+    weights = m31(prover._n_constraints(groups), 4)
+    idx, off, n = prover._groups_on(device)
+    ms, plain_ms, e = compare(
+        "K7c", lambda: stark_kernels.composition(vals, idx, off, n, weights, vn_inv),
+        lambda: prover._composition_plain(vals, groups, weights, vn_inv),
+        lambda r: [r])
+    log(f"phase 3 K7c composition on the chacha20 AIR at M={M} (random "
+        f"values): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
+    return max(err, e)
+
+
+def sweep_merkle_crossover(device):
+    """Phase 3: one Merkle layer of n hashes by hashlib on the host and by
+    K7a (the launch and a synchronise, host clock), for node pairs (64 B)
+    and FRI's 16-byte leaves (with their copy to the card): where K7a
+    starts to win is merkle.DEVICE_MIN_HASHES (node pairs) and
+    merkle.DEVICE_MIN_LEAVES (FRI's leaves)."""
+    import hashlib
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.stark import blake2s
+    rng = np.random.default_rng(STARK_SEED + 1)
+    rows = {}
+    for k in range(2, 13):
+        n = 1 << k
+        for kind, length in (("pairs", 64), ("16-byte leaves", 16)):
+            data = rng.integers(0, 256, (n, length), dtype=np.uint8)
+            reps = max(3, 2048 // n)
+
+            def host():
+                return b"".join(hashlib.blake2s(data[i].tobytes(),
+                                                digest_size=32).digest()
+                                for i in range(n))
+
+            def card():
+                w = torch.from_numpy(data.view(np.int32)).to(device)
+                out = blake2s.hash_strided(w, n, length, length // 4, 1)
+                return out.cpu().numpy().tobytes()
+            if host() != card():
+                raise AssertionError(f"crossover sweep: {kind} {n} differ")
+            times = []
+            for fn in (host, card):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                times.append((time.perf_counter() - t) / reps * 1e3)
+            rows.setdefault(kind, []).append((n, *times))
+            log(f"phase 3 Merkle layer of {n} {kind}: hashlib {times[0]:.4f} "
+                f"ms, K7a with its copies {times[1]:.4f} ms")
+    for kind, rs in rows.items():
+        wins = [n for n, h, c in rs if c < h]
+        log(f"phase 3 Merkle crossover ({kind}): K7a faster from "
+            f"{min(wins) if wins else 'never'} hashes")
+
+
+def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
+    """Phase 9: the stark engine on the card. Returns the warm API proof's
+    launch counts."""
+    import base64
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.ops import ciphers
+    from zksc_tpu_torch.stark import prover as sp
+    rnd = np.random.default_rng(STARK_SEED)
+    key, iv, ct = rnd.bytes(32), rnd.bytes(12), rnd.bytes(128)
+    t0 = time.time()
+    t = time.time()
+    api.generate_proof("chacha20", key, ct, iv, engine="stark", device="cuda")
+    log(f"phase 9 stark chacha20 128-byte chunk, proof 1 (cold): "
+        f"{time.time() - t:.3f} s")
+    op = api.get_operator("chacha20", "stark", "cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.time()
+    env = api.generate_proof("chacha20", key, ct, iv, engine="stark",
+                             device="cuda")
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
+    log(f"phase 9 proof 2 (warm): {secs:.3f} s ({stages}); launches "
+        f"{ {k: launches[k] for k in StarkRecorder.NAMES} }; peak device "
+        f"memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} GiB held; "
+        f"envelope {env.proof_data['proof_size_bytes']} B")
+    for k in StarkRecorder.NAMES:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the warm "
+                                 f"stark proof")
+    with rec_api:                      # proof 3, its K7 calls kept for phase 5
+        rec_api.window = True
+        api.generate_proof("chacha20", key, ct, iv, engine="stark",
+                           device="cuda")
+        rec_api.window = False
+    t = time.time()
+    ok = api.verify_proof(env, ct, iv, engine="stark", device="cuda")
+    log(f"phase 9 verify_proof(engine='stark'): {ok} ({time.time() - t:.2f} s)")
+    if not ok:
+        raise AssertionError("the port's stark verifier rejected the proof")
+    bad_ct = bytes([ct[0] ^ 1]) + ct[1:]
+    raw = bytearray(base64.b64decode(env.proof_data["proof"]))
+    raw[len(raw) // 2] ^= 1
+    bad_env = api.ProofEnvelope(env.algorithm, dict(
+        env.proof_data, proof=base64.b64encode(bytes(raw)).decode()),
+        env.plaintext, env.data_len)
+    for label, e, c in (("a flipped ciphertext byte", env, bad_ct),
+                        ("a flipped byte of the bincode payload", bad_env, ct)):
+        if api.verify_proof(e, c, iv, engine="stark", device="cuda"):
+            raise AssertionError(f"phase 9: {label} verified")
+        log(f"phase 9 rejected: {label}")
+
+    # a 16 KiB TLS record: 256 blocks, N = 256, M = 2,048
+    pt = rnd.bytes(16384)
+    rct = ciphers.chacha20_encrypt(key, iv, 1, pt)
+    for i in (1, 2):
+        timings = {}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.time()
+        proof = sp.prove_stream(key, iv, 1, pt, rct, device="cuda",
+                                timings=timings)
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        rl = counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        log(f"phase 9 16 KiB record (256 blocks), proof {i}: {secs:.3f} s ("
+            + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
+            + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; peak "
+            f"device memory {peak / 2**30:.3f} GiB")
+    if min(rl[k] for k in StarkRecorder.NAMES) <= 0:
+        raise AssertionError("a K7 kernel was not launched by the record proof")
+    with rec_record:                   # proof 3, its K7 calls kept for phase 5
+        rec_record.window = True
+        sp.prove_stream(key, iv, 1, pt, rct, device="cuda")
+        rec_record.window = False
+    t = time.time()
+    if not sp.verify_stream(proof, iv, 1, pt, rct, device="cuda"):
+        raise AssertionError("the 16 KiB record's proof did not verify")
+    log(f"phase 9 16 KiB record verified ({time.time() - t:.2f} s)")
+
+    # the card's envelope equals the CPU's (plain versions, hashlib) under
+    # one seeded source of blinding bytes
+    pt128 = ciphers.chacha20_encrypt(key, iv, 1, ct)
+    envs = {}
+    for dev in ("cuda", "cpu"):
+        t = time.time()
+        envs[dev] = sp.prove_stream(key, iv, 1, pt128, ct, device=dev,
+                                    rand_bytes=seeded_bytes(STARK_SEED)
+                                    ).to_envelope()
+        log(f"phase 9 seeded proof on {dev}: {time.time() - t:.3f} s")
+    if envs["cuda"] != envs["cpu"]:
+        raise AssertionError("the card's envelope differs from the CPU's")
+    log(f"phase 9 card and CPU envelopes equal byte for byte "
+        f"({envs['cpu']['proof_size_bytes']} B); phase 9 total "
+        f"{time.time() - t0:.2f} s")
+    return launches
+
+
+def time_stark_kernels(log_calls, imad_rate, path: str):
+    """Phase 5 for K7: the largest call of each K7 instance in one warm
+    proof, replayed through the kernel (card-only and host-paced CUDA-event
+    times) and its plain version (equal value for value), beside its
+    bound; then every call of the proof replayed in order, summed per
+    kernel. Returns (rows, totals)."""
+    from zksc_tpu_torch.ops import stark_kernels
+    largest = {}
+    for name, args in log_calls:
+        key = (name, k7_variant(name, args))
+        size = args[0].numel() * (args[2] if name == "blake2s" else 1)
+        if key not in largest or size > largest[key][0]:
+            largest[key] = (size, args)
+    rows = []
+    for (name, variant), (_, args) in sorted(largest.items()):
+        kern = getattr(stark_kernels, name)
+        run = lambda: kern(*args)
+        ms, plain_ms, err = compare(f"{name} {variant}", run,
+                                    lambda: k7_plain(name, args),
+                                    lambda r: [r])
+        paced = cuda_ms(run, reps=3, paced=True)
+        bound, by, work = k7_bound_ms(name, args, imad_rate)
+        log(f"[{path}] {name} {variant}: kernel {ms:.4f} ms ({paced:.4f} ms "
+            f"paced by the host), plain {plain_ms:.2f} ms, bound {bound:.4f} "
+            f"ms ({by}; {work}), max_abs_err={err}")
+        rows.append({"name": name, "path": path, "variant": variant,
+                     "ms": ms, "paced_ms": paced, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": err})
+    tot = {}
+    for name, args in log_calls:
+        kern = getattr(stark_kernels, name)
+        t = tot.setdefault(name, {"launches": 0, "ms": 0.0, "paced_ms": 0.0,
+                                  "bound_ms": 0.0})
+        before = stark_kernels.LAUNCHES[name]
+        kern(*args)
+        t["launches"] += stark_kernels.LAUNCHES[name] - before
+        t["ms"] += cuda_ms(lambda: kern(*args), reps=2)
+        t["paced_ms"] += cuda_ms(lambda: kern(*args), reps=2, paced=True)
+        t["bound_ms"] += k7_bound_ms(name, args, imad_rate)[0]
+    for name, t in sorted(tot.items()):
+        log(f"[{path} warm proof] {name}: {t['launches']} launches, kernel "
+            f"{t['ms']:.4f} ms in all ({t['paced_ms']:.4f} ms paced by the "
+            f"host), bound {t['bound_ms']:.4f} ms "
+            f"({100 * t['bound_ms'] / max(t['ms'], 1e-9):.1f}% of the time)")
+    return rows, tot
+
+
+def run_stark_phase5(rec_api, rec_record, imad_rate):
+    """Phase 5 for the stark engine's two warm proofs."""
+    rows, per_proof = [], {}
+    for path, rec in (("stark chacha20 128 B", rec_api),
+                      ("stark chacha20 16 KiB", rec_record)):
+        r, per_proof[path] = time_stark_kernels(rec.log, imad_rate, path)
+        rows += r
+        rec.log = []
+    return rows, per_proof
+
+
+def stark_kernel_entries(rows, per_proof, launches, err):
+    """The K7 entries of the kernels line: each kernel at its largest
+    instance of the warm API proof (the 128-byte chunk)."""
+    entries = []
+    for name in StarkRecorder.NAMES:
+        mine = [r for r in rows if r["name"] == name]
+        main = max((r for r in mine if r["path"] == "stark chacha20 128 B"),
+                   key=lambda r: r["bound_ms"])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "zksc_tpu_torch/csrc/stark_kernels.cu",
+            "replaces": K7_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "path": main["path"], "shape": main["variant"],
+            "per_proof": {p: t[name] for p, t in per_proof.items() if name in t},
+            "variants": mine})
+    return entries
+
+
 def profile_proof(prove):
     """torch.profiler over one proof: device time by kernel and the
     device's busy share of the proof's (profiled) wall time."""
@@ -1441,7 +1879,7 @@ def main(argv) -> int:
 
     # ---- 2. build: every nvcc started together
     from zksc_tpu_torch.native import tape_lib
-    from zksc_tpu_torch.ops import cuda_build, ec_kernels, msm_kernels
+    from zksc_tpu_torch.ops import cuda_build, ec_kernels, msm_kernels, stark_kernels
     t = time.time()
     nvcc = cuda_build.build(verbose=True)
     log(f"phase 2 build: nvcc " + ", ".join(
@@ -1459,9 +1897,11 @@ def main(argv) -> int:
     def reset_counts():
         ec_kernels.reset_launch_counts()
         msm_kernels.reset_launch_counts()
+        stark_kernels.reset_launch_counts()
 
     def counts():
-        return {**ec_kernels.LAUNCHES, **msm_kernels.LAUNCHES}
+        return {**ec_kernels.LAUNCHES, **msm_kernels.LAUNCHES,
+                **stark_kernels.LAUNCHES}
 
     from zksc_tpu_torch import api
     if "--toprf" in argv:
@@ -1484,6 +1924,8 @@ def main(argv) -> int:
     k3_err, k3_plain_ms = check_ladder(g1a, g2h, imad_rate)
     err = max(err, k3_err, check_wide_windows(g1a, g2h))
     check_stable_sort()
+    err = max(err, check_stark_kernels(device))
+    sweep_merkle_crossover(device)
     log(f"phase 3 kernel checks passed (max_abs_err {err})")
     del g1a, g1b, g2h
 
@@ -1545,6 +1987,10 @@ def main(argv) -> int:
     rec_toprf = Recorder()
     drive_toprf(api, "chacha20-toprf", reset_counts, counts, rec_toprf)
 
+    # ---- 9. the stark engine: chacha20, a 128-byte chunk and a 16 KiB record
+    rec_api, rec_record = StarkRecorder(), StarkRecorder()
+    stark_launches = drive_stark(api, reset_counts, counts, rec_api, rec_record)
+
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")
             + time_kernels(rec_aes.calls, imad_rate, "aes-128-ctr")
@@ -1556,11 +2002,13 @@ def main(argv) -> int:
         per_proof[path] = proof_totals(rec.log, imad_rate, path, counts,
                                        reset_counts)
         rec.log = []
+    stark_rows, stark_per_proof = run_stark_phase5(rec_api, rec_record,
+                                                   imad_rate)
     log("phase 5 kernel timing done")
     if "--profile" in argv:
         profile_proof(lambda: api.generate_proof("chacha20", key, ct, iv,
                                                  device="cuda", rng=rng))
-    err = max([err] + [r["max_abs_err"] for r in rows])
+    err = max([err] + [r["max_abs_err"] for r in rows + stark_rows])
 
     def head(name, replaces, source, path, variant, n_launch, plain_ms=None):
         r = next(r for r in rows if r["name"] == name and r["path"] == path
@@ -1590,7 +2038,8 @@ def main(argv) -> int:
                   k3_plain_ms["G1 unreduced shared bits"]),
              plain_shape="G1 unreduced shared bits N=4096 bits=32",
              launches_ladder_branch=ladder_launches["ladder"]),
-    ]}), flush=True)
+    ] + stark_kernel_entries(stark_rows, stark_per_proof, stark_launches, err)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

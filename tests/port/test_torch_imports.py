@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -74,7 +75,9 @@ def test_chip_smoke_fails_without_cuda():
 def test_entry_points_refuse_without_cuda(monkeypatch):
     from zksc_tpu_torch import api
     from zksc_tpu_torch.groth16 import ProverContext
-    from zksc_tpu_torch.operators import Groth16Operator
+    from zksc_tpu_torch.operators import Groth16Operator, StarkOperator
+    from zksc_tpu_torch.stark import merkle
+    from zksc_tpu_torch.stark import prover as sp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         api.generate_proof("chacha20", bytes(32), bytes(128), bytes(12))
@@ -87,3 +90,18 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         Groth16Operator("chacha20")
     with pytest.raises(RuntimeError, match="CUDA"):
         ProverContext(None, None)
+    # the stark engine's entry points
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proof("chacha20", bytes(32), bytes(128), bytes(12),
+                           engine="stark")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.verify_proof(env, bytes(128), bytes(12), engine="stark")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sp.prove_stream(bytes(32), bytes(12), 1, bytes(128), bytes(128),
+                        device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sp.verify_stream(None, bytes(12), 1, bytes(128), bytes(128))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StarkOperator("chacha20")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        merkle.commit(np.zeros((4, 16), dtype=np.uint8))

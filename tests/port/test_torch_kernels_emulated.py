@@ -1,4 +1,5 @@
-"""The CUDA sources of K1, K2 and K3 (zksc_tpu_torch/csrc/), run on the CPU.
+"""The CUDA sources of K1, K2, K3 and K7a-c (zksc_tpu_torch/csrc/), run on the
+CPU.
 
 No CUDA compiler exists here, so the sources are turned into plain C++ and
 built with g++: each PTX asm block becomes C++ with an explicit carry flag
@@ -13,8 +14,12 @@ on CPU tensors, and every output is held to the kernel's plain PyTorch
 version limb for limb, on crafted lanes (chip_smoke.craft: identity,
 doubling, negation, affine and Jacobian Q in one warp) at lane counts that
 leave a ragged last block and an unpaired warp tail for the two-thread G2
-instances. This checks the kernels' indexing, layouts, branches and the
-lane-pair protocol; the card's own compiler and timing are chip_smoke.py's."""
+instances. The STARK kernels (K7a Blake2s from strided sources, K7b's four
+circle-FFT layer forms, K7c's sliced composition over the chacha20 AIR's
+index groups and its second launch, a 2-D grid) are held to their plain
+versions and K7a to hashlib. This checks the kernels' indexing, layouts,
+branches and the lane-pair protocol; the card's own compiler and timing are
+chip_smoke.py's."""
 import ctypes
 import os
 import re
@@ -31,6 +36,9 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from zksc_tpu_torch.ops import ec, ec_kernels, msm, msm_kernels  # noqa: E402
+from zksc_tpu_torch.ops import stark_kernels  # noqa: E402
+from zksc_tpu_torch.stark import blake2s, chacha_air, circle  # noqa: E402
+from zksc_tpu_torch.stark import prover as stark_prover  # noqa: E402
 
 SHIM = r'''
 #pragma once
@@ -73,6 +81,10 @@ struct BlockCtx {
 };
 inline thread_local BlockCtx* g_blk = nullptr;
 inline void __syncthreads() { g_blk->all->arrive_and_wait(); }
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned n) {
+  n &= 31u;
+  return n ? (uint32_t)((((uint64_t)hi << 32) | lo) >> n) : lo;
+}
 template <class T> inline T __shfl_xor_sync(unsigned mask, T v, int lanemask) {
   const unsigned t = threadIdx.x;
   if (lanemask != 1 || mask != (3u << (t & 30u))) { fprintf(stderr, "unexpected shuffle\n"); abort(); }
@@ -115,6 +127,7 @@ inline char* dyn_smem() { return g_blk->smem.data(); }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 inline void zk_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> body) {
   gridDim = grid; blockDim = block;
+  for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned b = 0; b < grid.x; ++b) {
     BlockCtx ctx;
     ctx.all = std::make_unique<std::barrier<>>(block.x);
@@ -123,7 +136,7 @@ inline void zk_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> 
     ctx.smem.resize(smem + 16);
     std::vector<std::thread> th;
     for (unsigned t = 0; t < block.x; ++t)
-      th.emplace_back([&, t, b] { threadIdx = {t, 0, 0}; blockIdx = {b, 0, 0}; g_blk = &ctx; body(); });
+      th.emplace_back([&, t, b, by] { threadIdx = {t, 0, 0}; blockIdx = {b, by, 0}; g_blk = &ctx; body(); });
     for (auto& x : th) x.join();
   }
 }
@@ -196,7 +209,7 @@ def _translate(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """(ec library, msm library) built from csrc/ with g++."""
+    """(ec, msm, stark libraries) built from csrc/ with g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the emulated kernels cannot be built")
@@ -205,7 +218,7 @@ def emulated(tmp_path_factory):
     for name in os.listdir(CSRC):
         (d / name).write_text(_translate(open(os.path.join(CSRC, name)).read()))
     libs = []
-    for name in ("ec_kernels", "msm_kernels"):
+    for name in ("ec_kernels", "msm_kernels", "stark_kernels"):
         so = d / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
                         str(d / f"{name}.cu"), "-o", str(so)], check=True,
@@ -213,6 +226,7 @@ def emulated(tmp_path_factory):
         libs.append(ctypes.CDLL(str(so)))
     ec_kernels._declare(libs[0])
     msm_kernels._declare(libs[1])
+    stark_kernels._declare(libs[2])
     return libs
 
 
@@ -359,3 +373,70 @@ def test_k3_constants_match_source(name, constant):
     src = open(os.path.join(CSRC, "msm_kernels.cu")).read()
     m = re.search(rf"constexpr int {constant} = (\d+);", src)
     assert m and int(m.group(1)) == getattr(msm_kernels, name)
+
+
+@pytest.fixture
+def stark_emu(emulated, monkeypatch):
+    """stark_kernels' launch paths, pointed at the emulated library."""
+    monkeypatch.setattr(stark_kernels, "_lib", lambda: emulated[2])
+    monkeypatch.setattr(stark_kernels, "_stream", lambda t: None)
+    monkeypatch.setattr(stark_kernels, "_require_cuda", lambda t, what: None)
+    return stark_kernels
+
+
+def test_k7a_emulated(stark_emu):
+    """K7a over 8 messages at lengths 0-200 bytes (partial last words and
+    blocks, an empty message), from a contiguous source, from the columns
+    of a [words, 8] matrix (word stride 8, message stride 1, as the trace
+    commitment reads the LDE) and as a Merkle pair layer (message stride
+    16): equal to the plain version and to hashlib."""
+    import hashlib
+    import numpy as np
+    rng = np.random.default_rng(7)
+    for length in (0, 1, 63, 64, 65, 200):
+        nw = max(1, -(-length // 4))
+        words = torch.from_numpy(rng.integers(-2**31, 2**31, (nw, 8),
+                                              dtype=np.int64).astype(np.int32))
+        for base, ms, ws in ((words.T.contiguous(), nw, 1), (words, 1, 8)):
+            got = stark_emu.blake2s(base, 8, length, ms, ws)
+            assert torch.equal(got, blake2s.hash_strided_plain(base, 8, length, ms, ws))
+            msgs = words.T.contiguous().numpy().view(np.uint8)[:, :length]
+            for i in range(8):
+                assert got[i].numpy().tobytes() == hashlib.blake2s(
+                    msgs[i].tobytes(), digest_size=32).digest()
+    layer = torch.from_numpy(rng.integers(-2**31, 2**31, (16, 8),
+                                          dtype=np.int64).astype(np.int32))
+    got = stark_emu.blake2s(layer, 8, 64, 16, 1)
+    assert torch.equal(got, blake2s.hash_strided_plain(layer, 8, 64, 16, 1))
+
+
+@pytest.mark.parametrize("log_n", [2, 3, 5])
+def test_k7b_emulated(stark_emu, log_n):
+    """K7b: interpolate and evaluate as log N layer launches (the y-fold and
+    x-folds of each) over 3 columns, equal to the plain versions."""
+    import numpy as np
+    fft = circle.CircleFFT(log_n)
+    x = torch.from_numpy(np.random.default_rng(log_n).integers(
+        0, (1 << 31) - 1, (3, 1 << log_n)).astype(np.int32))
+    for interp in (True, False):
+        got = fft._transform(x, interp, stark_kernels.circle_layer)
+        assert torch.equal(got, fft._plain(x, interp))
+
+
+def test_k7c_emulated(stark_emu):
+    """K7c on the chacha20 AIR's index groups (53,504 constraints in 418
+    slices) at M = 32 random values, weights and V_N inverses: equal to
+    _composition_plain."""
+    import numpy as np
+    n_comm, groups = chacha_air.layout()
+    rng = np.random.default_rng(3)
+    R, M = n_comm + chacha_air.N_PUBLIC + 1, 32
+    rand = lambda *shape: torch.from_numpy(
+        rng.integers(0, (1 << 31) - 1, shape).astype(np.int32))
+    vals, vn_inv = rand(R, M), rand(M)
+    weights = rand(stark_prover._n_constraints(groups), 4)
+    idx, off, n = stark_kernels.pack_groups(groups)
+    got = stark_emu.composition(vals, torch.from_numpy(idx), off, n, weights,
+                                vn_inv)
+    assert torch.equal(got, stark_prover._composition_plain(vals, groups,
+                                                            weights, vn_inv))

@@ -2,12 +2,16 @@
 
 Ported from the JAX package's ``api.py`` for the six statements (chacha20,
 aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under the Groth16
-engine: chunk the ciphertext into cipher blocks, derive per-block counters
+engine, and chacha20 under the "stark" engine (``engine="stark"``): chunk the ciphertext into cipher blocks, derive per-block counters
 from byte offsets, pad to the fixed circuit chunk size, decrypt locally to
 obtain the expected plaintext (the witness "out"), dispatch to the engine
 operator, wrap the proof envelope {algorithm, proofData, plaintext}. A
 ``-toprf`` proof keeps the plaintext private: its envelope carries none, and
 the verifier takes the TOPRF public signals instead.
+
+As in the reference, ``verify_proof`` defaults to ``engine="groth16"``: a
+stark envelope verifies only with ``engine="stark"`` and gives False under
+the default.
 
 Every entry point takes ``device=`` and runs on the GPU ("cuda") unless the
 caller asks for the CPU; with no CUDA present and no explicit
@@ -271,8 +275,9 @@ def generate_proof(algorithm: str, key: bytes, ciphertext: bytes, iv: bytes,
     plaintext. One chunk per call. With toprf+mask, proves the *-toprf
     statement instead: the plaintext stays private and the envelope carries
     no plaintext (reference provers.go returns output=nil for OPRF proofs).
-    rng: optional callable () -> int for the proof blinding (default: a
-    cryptographically secure source)."""
+    rng: optional callable () -> int for the Groth16 proof blinding
+    (default: a cryptographically secure source; the stark engine takes
+    none)."""
     dev = resolve_device(device)
     witness_input = generate_zk_witness(algorithm, key, ciphertext, iv,
                                         offset_bytes, boundaries=boundaries,
@@ -327,8 +332,9 @@ def verify_proof(proof: ProofEnvelope, ciphertext: bytes, iv: bytes,
                  offset_bytes: int = 0, engine: str = "groth16",
                  toprf: ZKTOPRFPublicSignals | None = None,
                  boundaries: list | None = None, device=None) -> bool:
-    """Verify a proof envelope against public data (host pairing check).
-    For *-toprf proofs pass the TOPRF public signals (and boundaries if the
+    """Verify a proof envelope against public data (host pairing check, or
+    the STARK verifier with engine="stark": the engine is not read from the
+    envelope). For *-toprf proofs pass the TOPRF public signals (and boundaries if the
     stream had partial blocks) instead of relying on the envelope plaintext."""
     dev = resolve_device(device)
     operator = get_operator(proof.algorithm, engine, dev)

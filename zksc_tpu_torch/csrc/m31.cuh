@@ -1,0 +1,36 @@
+// Mersenne-31 arithmetic for the STARK kernels (csrc/stark_kernels.cu).
+//
+// Values are canonical uint32 in [0, p), p = 2^31 - 1, as the port's int64
+// plain versions (stark/m31.py) and the JAX package's uint32 arrays hold
+// them. A product is formed in 64 bits (one IMAD.WIDE) and reduced by
+// folding: 2^31 = 1 (mod p), so x = hi * 2^31 + lo = hi + lo.
+#pragma once
+
+#include <cstdint>
+
+namespace zksc {
+
+constexpr uint32_t kP31 = 0x7FFFFFFFu;
+constexpr uint32_t kInv2 = 0x40000000u;   // 2^-1 mod p = (p + 1) / 2
+
+// any uint64 -> [0, p): two folds leave at most p + 1, then one subtract
+__device__ __forceinline__ uint32_t m31_red(uint64_t x) {
+  x = (x & kP31) + (x >> 31);
+  x = (x & kP31) + (x >> 31);
+  return (uint32_t)(x >= kP31 ? x - kP31 : x);
+}
+
+__device__ __forceinline__ uint32_t m31_add(uint32_t a, uint32_t b) {
+  const uint32_t r = a + b;                 // < 2^32: a, b < 2^31
+  return r >= kP31 ? r - kP31 : r;
+}
+
+__device__ __forceinline__ uint32_t m31_sub(uint32_t a, uint32_t b) {
+  return a >= b ? a - b : a + (kP31 - b);
+}
+
+__device__ __forceinline__ uint32_t m31_mul(uint32_t a, uint32_t b) {
+  return m31_red((uint64_t)a * b);
+}
+
+}  // namespace zksc

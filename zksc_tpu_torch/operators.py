@@ -1,9 +1,10 @@
-"""Engine operators: the Groth16 prover/verifier for one algorithm.
+"""Engine operators: the prover/verifier of one algorithm under one engine.
 
-Ported from the JAX package's ``operators.py`` for the six statements
+Ported from the JAX package's ``operators.py``: the six statements
 (chacha20, aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under
-the "groth16" engine. The STARK engines and the multi-device mesh are not
-ported yet; asking for them raises.
+the "groth16" engine, and chacha20 under the "stark" engine (Circle STARK
+over M31). The AES statements under "stark", the "stark-stwo" engine and
+the multi-device mesh are not ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -197,7 +198,97 @@ class Groth16Operator:
         return g16_verify(vk, proof, public_bits)
 
 
+class StarkOperator:
+    """Circle-STARK engine ("stark") on `device` (default "cuda"): single
+    nonce, sequential counters, the proof as the base64-bincode envelope.
+    chacha20 uses the stream AIR (stark/prover.py); the AES statements
+    under this engine are not ported yet. The blinding bytes come from
+    secrets.token_bytes (stark.prover.prove_stream takes others)."""
+
+    ALGORITHMS = ("chacha20",)
+
+    def __init__(self, algorithm: str, device=None):
+        if algorithm not in self.ALGORITHMS:
+            raise ValueError(
+                f"stark engine: {algorithm!r} is not ported yet (ported: "
+                f"{', '.join(self.ALGORITHMS)})")
+        self.device = resolve_device(device)
+        self.algorithm = algorithm
+        self.timings: dict = {}
+
+    @staticmethod
+    def _check_blocks(blocks):
+        nonce = blocks[0].nonce
+        counter0 = blocks[0].counter
+        for i, b in enumerate(blocks):
+            if b.nonce != nonce or b.counter != counter0 + i:
+                raise ValueError("stark engine requires a single nonce and "
+                                 "sequential counters (reference stwo parity)")
+        return nonce, counter0
+
+    def prove(self, wi: ZKProofInput, rng=None) -> dict:
+        from .stark import prover as sp
+        if rng is not None:
+            raise ValueError("the stark engine takes no rng: its blinding "
+                             "bytes come from secrets.token_bytes")
+        nonce, counter0 = self._check_blocks(wi.blocks)
+        timings = {}
+        proof = sp.prove_stream(wi.key, nonce, counter0, wi.plaintext,
+                                wi.ciphertext, device=self.device,
+                                timings=timings)
+        self.timings = timings
+        return proof.to_envelope()
+
+    def prove_batch(self, wis: list, rng=None) -> list:
+        return [self.prove(wi, rng) for wi in wis]
+
+    def verify(self, public_bits: list, proof_data: dict) -> bool:
+        """public_bits: the engine-neutral signal vector from
+        api.get_public_signals (per block: counter LE bits, nonce bits,
+        ciphertext bits, plaintext bits), decoded back to byte inputs. Any
+        exception gives False."""
+        from .stark import prover as sp
+        cfg = CONFIG[self.algorithm]
+        bs = cfg.block_size_bytes
+        per_block = 32 + 96 + 8 * bs + 8 * bs
+        if len(public_bits) != per_block * cfg.blocks_per_chunk:
+            return False
+
+        def bits_to_bytes(bits):
+            out = bytearray(len(bits) // 8)
+            for i, b in enumerate(bits):
+                if int(b) not in (0, 1):
+                    raise ValueError("non-bit public signal")
+                out[i // 8] |= int(b) << (i % 8)
+            return bytes(out)
+
+        try:
+            nonce = counter0 = None
+            cts, pts = [], []
+            for blk in range(cfg.blocks_per_chunk):
+                off = blk * per_block
+                ctr = int.from_bytes(
+                    bits_to_bytes(public_bits[off:off + 32]), "little")
+                nnc = bits_to_bytes(public_bits[off + 32:off + 128])
+                cts.append(bits_to_bytes(
+                    public_bits[off + 128:off + 128 + 8 * bs]))
+                pts.append(bits_to_bytes(
+                    public_bits[off + 128 + 8 * bs:off + per_block]))
+                if blk == 0:
+                    nonce, counter0 = nnc, ctr
+                elif nnc != nonce or ctr != counter0 + blk:
+                    return False
+            proof = sp.StreamProof.from_json_dict(proof_data)
+            return sp.verify_stream(proof, nonce, counter0, b"".join(pts),
+                                    b"".join(cts), device=self.device)
+        except Exception:
+            return False
+
+
 def make_operator(algorithm: str, engine: str, device=None):
     if engine == "groth16":
         return Groth16Operator(algorithm, device=device)
-    raise ValueError(f"engine {engine!r} is not ported yet (available: groth16)")
+    if engine == "stark":
+        return StarkOperator(algorithm, device=device)
+    raise ValueError(f"engine {engine!r} is not ported yet (available: "
+                     "groth16, stark)")

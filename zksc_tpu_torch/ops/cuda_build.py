@@ -8,6 +8,8 @@ and waits for all of them; ``load(name)`` builds on first use.
 
     ec   csrc/ec_kernels.cu  -> build/libzksc_ec.so   (K1 chunk_scan, K2 jac_add_n)
     msm  csrc/msm_kernels.cu -> build/libzksc_msm.so  (K3 ladder)
+    stark csrc/stark_kernels.cu -> build/libzksc_stark.so (K7a blake2s,
+         K7b circle_layer, K7c composition)
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIBS = {
     "ec": ("ec_kernels.cu", ("bn254.cuh",), "libzksc_ec.so"),
     "msm": ("msm_kernels.cu", ("bn254.cuh",), "libzksc_msm.so"),
+    "stark": ("stark_kernels.cu", ("m31.cuh",), "libzksc_stark.so"),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -1,0 +1,207 @@
+"""Wrappers of the hand-written CUDA kernels of the Circle-STARK engine.
+
+  - blake2s (K7a): Blake2s-256 of many messages from a strided source;
+    replaces the work of zksc_tpu/stark/blake2s.py:blake2s / blake2s_pair.
+  - circle_layer (K7b): one fold layer of the circle FFT over a batch of
+    columns; replaces zksc_tpu/stark/circle.py:CircleFFT.interpolate /
+    evaluate, which XLA fuses.
+  - composition (K7c): the constraint composition divided by V_N; replaces
+    zksc_tpu/stark/prover.py:_composition.
+
+Source: ``csrc/stark_kernels.cu`` (with ``csrc/m31.cuh``), compiled for
+sm_90a by one plain ``nvcc`` call into ``build/libzksc_stark.so`` at first
+use (ops/cuda_build.py) and loaded with ctypes.
+
+These functions launch on CUDA tensors only (on the current stream, without
+synchronising) and raise on anything else; the callers in ``stark/`` send a
+CPU tensor to the plain PyTorch versions beside them (``blake2s.py``,
+``circle.py``, ``prover.py``). ``LAUNCHES`` counts real kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build
+
+LAUNCHES = {"blake2s": 0, "circle_layer": 0, "composition": 0}
+
+# constraints per K7c slice: grid (ceil(M / 128) point tiles) x (53,504 /
+# 128 = 418 slices) at the chacha20 AIR, ~3,300 blocks at M = 1,024
+COMPOSITION_SLICE = 128
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _declare(lib):
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lls = ctypes.POINTER(ctypes.c_longlong)
+    lib.zksc_blake2s.restype = ci
+    lib.zksc_blake2s.argtypes = [vp, cll, cll, cll, cll, vp, vp]
+    lib.zksc_circle_layer.restype = ci
+    lib.zksc_circle_layer.argtypes = [vp, vp, cll, ci, ci, ci, ci, vp, vp]
+    lib.zksc_composition.restype = ci
+    lib.zksc_composition.argtypes = [vp, cll, vp, lls, lls, vp, cll, vp, vp,
+                                     vp, vp]
+
+
+def _lib():
+    return cuda_build.load("stark", _declare)
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(t: torch.Tensor, what: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+
+
+def _check(t: torch.Tensor, what: str, shape=None):
+    _require_cuda(t, what)
+    if t.dtype != torch.int32:
+        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------- K7a
+
+def n_words(length: int) -> int:
+    return (length + 3) // 4
+
+
+def check_strided(base: torch.Tensor, count: int, length: int,
+                  msg_stride: int, word_stride: int, what: str):
+    """Raise unless every word the strided read touches lies in `base`
+    (int32, contiguous from its first element)."""
+    if count < 0 or length < 0 or msg_stride < 0 or word_stride < 0:
+        raise ValueError(f"{what}: negative count, length or stride")
+    if count == 0 or length == 0:
+        return
+    last = (count - 1) * msg_stride + (n_words(length) - 1) * word_stride
+    if last >= base.numel():
+        raise ValueError(f"{what}: the strided read reaches word {last} of a "
+                         f"source of {base.numel()} words")
+
+
+def blake2s(base: torch.Tensor, count: int, length: int, msg_stride: int,
+            word_stride: int) -> torch.Tensor:
+    """K7a: Blake2s-256 of `count` messages of `length` bytes; word j of
+    message i is base.view(-1)[i * msg_stride + j * word_stride] (bytes
+    little-endian, those past `length` ignored). Returns int32 [count, 8],
+    the digests' words (``.view(torch.uint8)`` gives the bytes)."""
+    _check(base, "blake2s source")
+    check_strided(base, count, length, msg_stride, word_stride, "blake2s")
+    out = torch.empty((count, 8), dtype=torch.int32, device=base.device)
+    if count == 0:
+        return out
+    rc = _lib().zksc_blake2s(base.data_ptr(), count, length, msg_stride,
+                             word_stride, out.data_ptr(), _stream(base))
+    _raise_on(rc, "blake2s")
+    LAUNCHES["blake2s"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K7b
+
+def circle_layer(src: torch.Tensor, interp: bool, rev: bool, log_w: int,
+                 tw: torch.Tensor) -> torch.Tensor:
+    """K7b: one fold layer over the rows of src [C, N] (csrc/stark_kernels.cu
+    circle_layer_kernel): interpolate's y-fold (interp, not rev) or an
+    x-fold (interp, rev), evaluate's x-layer (rev) or y-layer (not rev), at
+    chunk width 2^log_w with 2^log_w twiddles. Returns a new [C, N]."""
+    _check(src, "circle_layer input")
+    if src.dim() != 2:
+        raise ValueError(f"circle_layer: expected [C, N], got {tuple(src.shape)}")
+    C, N = src.shape
+    log_n = N.bit_length() - 1
+    if N < 2 or N != 1 << log_n or not 0 <= log_w <= log_n - 1:
+        raise ValueError(f"circle_layer: N={N}, log_w={log_w}")
+    _check(tw, "circle_layer twiddles", shape=(1 << log_w,))
+    if tw.device != src.device:
+        raise ValueError("circle_layer: twiddles on another device")
+    out = torch.empty_like(src)
+    if C == 0:
+        return out
+    rc = _lib().zksc_circle_layer(src.data_ptr(), out.data_ptr(), C, log_n,
+                                  int(interp), int(rev), log_w, tw.data_ptr(),
+                                  _stream(src))
+    _raise_on(rc, "circle_layer")
+    LAUNCHES["circle_layer"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K7c
+
+GROUP_FIELDS = (("bool", (None,)),
+                ("add", ("A", "B", "R", "C", "Cin")),
+                ("addx", ("U", "W", "B", "R", "C", "Cin")),
+                ("xor", ("A", "B", "R")),
+                ("eq", ("KS", "PT", "CT")))
+
+
+def pack_groups(groups: dict) -> tuple:
+    """The AIR's index groups (chacha_air.layout()) -> (idx int32 numpy
+    array, off, n): group g's field f of constraint i at idx[off[g] + f *
+    n[g] + i], in K7c's order bool, add, addx, xor, eq."""
+    parts, off, n, at = [], [], [], 0
+    for name, fields in GROUP_FIELDS:
+        g = groups[name]
+        cols = [g] if fields == (None,) else [g[f] for f in fields]
+        off.append(at)
+        n.append(len(cols[0]))
+        for c in cols:
+            parts.append(np.asarray(c, dtype=np.int32))
+            at += len(c)
+    return np.concatenate(parts), tuple(off), tuple(n)
+
+
+def composition(vals: torch.Tensor, idx: torch.Tensor, off: tuple, n: tuple,
+                weights: torch.Tensor, vn_inv: torch.Tensor) -> torch.Tensor:
+    """K7c: Q = (sum_k w_k c_k) / V_N as int32 [4, M] from vals [R, M], the
+    packed index groups (pack_groups, on the device), weights [K, 4] and
+    vn_inv [M]. Two launches: the sliced sums, then their total."""
+    _check(vals, "composition vals")
+    if vals.dim() != 2:
+        raise ValueError(f"composition: expected vals [R, M], got {tuple(vals.shape)}")
+    R, M = vals.shape
+    K = sum(n)
+    _check(idx, "composition idx", shape=(off[-1] + 3 * n[-1],))
+    _check(weights, "composition weights", shape=(K, 4))
+    _check(vn_inv, "composition vn_inv", shape=(M,))
+    for t in (idx, weights, vn_inv):
+        if t.device != vals.device:
+            raise ValueError("composition: operands on different devices")
+    if len(off) != 5 or len(n) != 5:
+        raise ValueError("composition: expected five index groups")
+    n_slices = max(1, -(-K // COMPOSITION_SLICE))
+    if n_slices > 65535:
+        raise ValueError(f"composition: {n_slices} slices exceed the grid")
+    partial = torch.empty((n_slices, 4, M), dtype=torch.int32, device=vals.device)
+    out = torch.empty((4, M), dtype=torch.int32, device=vals.device)
+    if M == 0:
+        return out
+    c_off = (ctypes.c_longlong * 5)(*off)
+    c_n = (ctypes.c_longlong * 5)(*n)
+    rc = _lib().zksc_composition(vals.data_ptr(), M, idx.data_ptr(), c_off,
+                                 c_n, weights.data_ptr(), COMPOSITION_SLICE,
+                                 partial.data_ptr(), vn_inv.data_ptr(),
+                                 out.data_ptr(), _stream(vals))
+    _raise_on(rc, "composition")
+    LAUNCHES["composition"] += 2    # composition_kernel, composition_finish_kernel
+    return out

@@ -1,0 +1,1 @@
+"""The Circle-STARK engine ("stark") over M31, for the chacha20 stream AIR."""
