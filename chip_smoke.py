@@ -20,7 +20,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      their seconds; then, from ptxas, each kernel instance's registers,
      stack and spill bytes (K3: lane_kernel and split_kernel, each for Fp
      and Fp2h; K7a blake2s_kernel, K7b circle_layer_kernel<interp, rev>,
-     K7c composition_kernel and composition_finish_kernel).
+     K7c composition_kernel and composition_finish_kernel, K7d
+     aes_composition_kernel).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -54,7 +55,10 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      interpolate and evaluate at log N = 3, 6, 8, 10, 11, 16, 20 over 1
      column and over min(4,096, 2^28 / N) columns, with the round trip;
      K7c at M = 1,024 on the chacha20 AIR's index groups with random
-     values. Then the Merkle crossover: one layer of 4-4,096 node pairs or
+     values; K7d on the AES-128 and AES-256 AIRs' index groups at M =
+     2,048 (the 80-byte chunk) and on AES-256's at M = 8,192 (the 16 KiB
+     record), random values and challenges, sigma as the prover's. Then
+     the Merkle crossover: one layer of 4-4,096 node pairs or
      16-byte leaves by hashlib and by K7a (with its copies), host clock.
   4. main path at full size: api.generate_proof("chacha20", ...) twice on
      a 128-byte chunk with the committed artifacts/chacha20 key (45,217
@@ -98,8 +102,20 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      verify_stream; the 128-byte chunk proved on the card and on the CPU
      (plain versions, hashlib) under one seeded rand_bytes: the two
      envelopes must be equal byte for byte.
+ 10. the stark engine for aes-128-ctr and aes-256-ctr (the LogUp S-box
+     AIR): for each key size, api.generate_proof(..., engine="stark") on
+     an 80-byte chunk cold, warm (the launch counters reset just before
+     it, K7a, K7b and K7d must all be > 0; stage seconds, peak device
+     memory, envelope size) and, for aes-128-ctr, once more for phase 5;
+     verify_proof(..., engine="stark") accepts it and rejects a flipped
+     ciphertext byte and a flipped byte of the bincode payload;
+     stark.aes_prover.prove_aes_ctr on a 16 KiB record (1,024 blocks, N =
+     1,024, M = 8,192) twice with the same checks (aes-256-ctr once more
+     for phase 5) and verify_aes_ctr; the aes-128-ctr chunk proved on the
+     card and on the CPU under one seeded rand_bytes: the envelopes must
+     be equal byte for byte.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
-     6, 7, 8 and 9): the first of the largest inputs each kernel variant got in
+     6, 7, 8, 9 and 10): the first of the largest inputs each kernel variant got in
      each path is replayed through the kernel and its plain version (equal
      limb for limb; for K3 over more than 128 lanes the plain version runs
      on a sample of an unreduced input's lanes that reaches every block of
@@ -113,7 +129,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      in order: per kernel the launches, the summed ms, the summed bound and
      the adds whose Q is affine, which also go into the kernels line;
      likewise for the recorded chacha20-toprf proof of phase 8. For the
-     stark engine's two warm proofs of phase 9: the largest call of each K7
+     stark engine's warm proofs (phase 9's chacha20 chunk and record, phase
+     10's aes-128-ctr chunk and aes-256-ctr record): the largest call of each K7
      instance replayed through the kernel and its plain version (equal),
      timed and set beside its bound (the larger of integer operations over
      the card's rate and the bytes read once and written once over HBM),
@@ -1420,7 +1437,11 @@ def drive_ladder_branch(reset_counts, counts) -> dict:
 STARK_SEED = 20242        # seed of phase 9's inputs and blinding bytes
 K7_REPLACES = {"blake2s": "zksc_tpu/stark/blake2s.py:79",
                "circle_layer": "zksc_tpu/stark/circle.py:104",
-               "composition": "zksc_tpu/stark/prover.py:236"}
+               "composition": "zksc_tpu/stark/prover.py:236",
+               "aes_composition": "zksc_tpu/stark/aes_prover.py:234"}
+# the K7 kernels each stark proof must launch
+CHACHA_K7 = ("blake2s", "circle_layer", "composition")
+AES_K7 = ("blake2s", "circle_layer", "aes_composition")
 # integer instructions per Blake2s compression, each issued at the integer
 # rate: a G is 4 IADD3 (a + b + m is one IADD3 on sm_90, c + d another), 4
 # LOP3 (the xors) and 4 SHF / PRMT (the rotates); 10 rounds x 8 G, plus the
@@ -1429,8 +1450,20 @@ BLAKE2S_OPS = 10 * 8 * 12 + 8
 # issue slots of an M31 product (a wide multiply, two folds, a select) and
 # of an M31 add or subtract (add, compare, select)
 M31_MUL_OPS, M31_ADD_OPS = 10, 3
+# issue slots of one weighted term, acc[q] += w[q] * c folded once below
+# 2^32 (K7d's add_term, K7c's accumulate), for the four components q, as
+# the SASS of libzksc_stark.so for sm_90a shows them (tools/stark_sass.py,
+# nvcc 12.9): per component IMAD.WIDE.U32, LOP3 (the mask), SHF.R.U64 and
+# SHF.R.U32.HI (the 64-bit shift), IADD3 and IADD3.X (both into acc); K7c
+# adds a VIADD to the product's high word (its c is 64-bit)
+K7D_TERM_OPS, K7C_TERM_OPS = 4 * 6, 4 * 7
 # M31 products per constraint of each group of the chacha20 AIR
 K7C_PRODUCTS = (1, 0, 1, 1, 1)
+# K7d, per item of each kind: M31 products, M31 adds / subtracts and
+# constraints (weight rows); the cum item's adds grow with the lookups (n_lk)
+K7D_ITEM = {"bool": (1, 1, 1), "const": (0, 1, 1), "xor": (1, 3, 1),
+            "mix": (0, 12, 1), "lookup": (20, 35, 4), "table": (21, 19, 4),
+            "eq": (1, 4, 1)}
 
 
 def seeded_bytes(seed: int):
@@ -1457,9 +1490,27 @@ def k7_bound_ms(name, args, imad_rate):
                        else (M31_MUL_OPS + 2 * M31_ADD_OPS))
         bound, by = _bound(ops, 8 * src.numel() + 4 * args[4].numel(), imad_rate)
         return bound, by, f"{flies} butterflies"
+    if name == "aes_composition":
+        from zksc_tpu_torch.ops import stark_kernels
+        vals, perm, idx, off, n, rows, bounds, za, weights = args[:9]
+        M = vals.shape[1]
+        counts = stark_kernels.aes_item_counts(n)
+        item = {**K7D_ITEM, "cum": (0, 4 * (n[4] + 3), 4)}
+        ops = M * sum(counts[kind] * (p * M31_MUL_OPS + a * M31_ADD_OPS
+                                      + k * K7D_TERM_OPS)
+                      for kind, (p, a, k) in item.items())
+        nbytes = (4 * (vals.numel() + perm.numel() + idx.numel()
+                       + weights.numel() + M + 4 * M) + 8 * bounds.numel())
+        bound, by = _bound(ops, nbytes, imad_rate)
+        per_item = stark_kernels.aes_item_gathers(n[4])
+        gathers = M * sum(counts[k] * g for k, g in per_item.items())
+        return bound, by, (f"{weights.shape[0]} constraints x {M} points in "
+                           f"{bounds.numel() - 1} slices, {gathers} gathers "
+                           f"({4 * gathers / HBM_BYTES_PER_S * 1e3:.4f} ms of "
+                           f"HBM if every gather missed the caches)")
     vals, idx, off, n, weights = args[:5]
     M = vals.shape[1]
-    ops = M * sum(k * (p * M31_MUL_OPS + 4 * M31_ADD_OPS + 4 * (M31_MUL_OPS - 2))
+    ops = M * sum(k * (p * M31_MUL_OPS + K7C_TERM_OPS)
                   for k, p in zip(n, K7C_PRODUCTS))
     nbytes = 4 * (vals.numel() + idx.numel() + weights.numel() + M + 4 * M)
     bound, by = _bound(ops, nbytes, imad_rate)
@@ -1483,27 +1534,41 @@ def k7_variant(name, args) -> str:
     return f"M={args[0].shape[1]} R={args[0].shape[0]}"
 
 
-def k7_plain(name, args):
-    """The plain version of one K7 call on the same inputs."""
+def k7_plain(name, args, key_size=None):
+    """The plain version of one K7 call on the same inputs (key_size: the
+    AES AIR's, for K7d)."""
     from zksc_tpu_torch.stark import blake2s, chacha_air, circle, prover
     if name == "blake2s":
         return blake2s.hash_strided_plain(*args)
     if name == "circle_layer":
         return circle.layer_plain(*args)
+    if name == "aes_composition":
+        return k7d_plain(key_size, *args)
     vals, idx, off, n, weights, vn_inv = args[:6]
     return prover._composition_plain(vals, chacha_air.layout()[1], weights,
                                      vn_inv)
 
 
+def k7d_plain(key_size, vals, perm, idx, off, n, rows, bounds, za, weights,
+              vn_inv):
+    """_composition_plain on one K7d call's inputs, over the AES AIR of
+    key_size."""
+    from zksc_tpu_torch.stark import aes_air, aes_prover
+    return aes_prover._composition_plain(vals, perm, aes_air.layout(key_size)[2],
+                                         za[:4], za[4:], weights, vn_inv)
+
+
 class StarkRecorder:
-    """Wraps stark_kernels' three launchers (the wrapped functions run
+    """Wraps stark_kernels' four launchers (the wrapped functions run
     unchanged); while `window` is set it keeps every call, in order, with
-    its arguments (`log`), holding its inputs."""
+    its arguments (`log`), holding its inputs. key_size: the AES AIR's of
+    the recorded proof (for K7d's plain version)."""
 
-    NAMES = ("blake2s", "circle_layer", "composition")
+    NAMES = ("blake2s", "circle_layer", "composition", "aes_composition")
 
-    def __init__(self):
+    def __init__(self, key_size=None):
         from zksc_tpu_torch.ops import stark_kernels
+        self.key_size = key_size
         self.mod = stark_kernels
         self.orig = {n: getattr(stark_kernels, n) for n in self.NAMES}
         self.log = []
@@ -1593,7 +1658,38 @@ def check_stark_kernels(device):
         lambda r: [r])
     log(f"phase 3 K7c composition on the chacha20 AIR at M={M} (random "
         f"values): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
-    return max(err, e)
+    return max(err, e, check_k7d(device, m31))
+
+
+def check_k7d(device, m31):
+    """Phase 3 for K7d: equal to its plain version on random values,
+    challenges and weights at the AES-128 and AES-256 chunk shapes (log_rows
+    8, M = 2,048) and the AES-256 16 KiB record's (log_rows 10, M = 8,192),
+    sigma as the prover's. Returns the max_abs_err (0)."""
+    import numpy as np
+    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.stark import aes_air, aes_prover
+    err = 0
+    for key_size, log_rows in ((16, 8), (32, 8), (32, 10)):
+        n1, n2, groups = aes_air.layout(key_size)
+        _, M, _ = aes_prover._domain_params(log_rows)
+        vals, vn_inv = m31(n1 + n2 + aes_air.N_PUB + 1, M), m31(M)
+        vals[-1] = 0
+        weights = m31(aes_prover.n_constraints(key_size), 4)
+        za = tuple(int(v) for v in m31(8).cpu())
+        perm = aes_prover._sigma_on(log_rows, device)
+        idx, off, n, rows, bounds = aes_prover._groups_on(key_size, device)
+        args = (vals, perm, idx, off, n, rows, bounds, za, weights, vn_inv)
+        ms, plain_ms, e = compare(
+            f"K7d AES-{8 * key_size} M={M}",
+            lambda: stark_kernels.aes_composition(*args),
+            lambda: k7d_plain(key_size, *args), lambda r: [r])
+        log(f"phase 3 K7d aes_composition on the AES-{8 * key_size} AIR at "
+            f"M={M} ({bounds.numel() - 1} slices, random values): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
+        err = max(err, e)
+        del vals, args
+    return err
 
 
 def sweep_merkle_crossover(device):
@@ -1673,7 +1769,7 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
         f"{ {k: launches[k] for k in StarkRecorder.NAMES} }; peak device "
         f"memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} GiB held; "
         f"envelope {env.proof_data['proof_size_bytes']} B")
-    for k in StarkRecorder.NAMES:
+    for k in CHACHA_K7:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the warm "
                                  f"stark proof")
@@ -1719,7 +1815,7 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
             + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
             + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; peak "
             f"device memory {peak / 2**30:.3f} GiB")
-    if min(rl[k] for k in StarkRecorder.NAMES) <= 0:
+    if min(rl[k] for k in CHACHA_K7) <= 0:
         raise AssertionError("a K7 kernel was not launched by the record proof")
     with rec_record:                   # proof 3, its K7 calls kept for phase 5
         rec_record.window = True
@@ -1748,12 +1844,132 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
     return launches
 
 
-def time_stark_kernels(log_calls, imad_rate, path: str):
+def drive_stark_aes(api, reset_counts, counts, recs) -> dict:
+    """Phase 10: the stark engine for aes-128-ctr and aes-256-ctr on the
+    card. recs: {path: StarkRecorder} for the proofs kept for phase 5.
+    Returns the warm aes-128-ctr API proof's launch counts."""
+    import base64
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.ops import ciphers
+    from zksc_tpu_torch.stark import aes_prover as ap
+    rnd = np.random.default_rng(STARK_SEED + 10)
+    t0 = time.time()
+    main_launches = None
+    for alg, key_size in (("aes-128-ctr", 16), ("aes-256-ctr", 32)):
+        key, iv, ct = rnd.bytes(key_size), rnd.bytes(12), rnd.bytes(80)
+        t = time.time()
+        api.generate_proof(alg, key, ct, iv, engine="stark", device="cuda")
+        log(f"phase 10 stark {alg} 80-byte chunk, proof 1 (cold): "
+            f"{time.time() - t:.3f} s")
+        op = api.get_operator(alg, "stark", "cuda")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.time()
+        env = api.generate_proof(alg, key, ct, iv, engine="stark", device="cuda")
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
+        log(f"phase 10 {alg} proof 2 (warm): {secs:.3f} s ({stages}); "
+            f"launches { {k: launches[k] for k in StarkRecorder.NAMES} }; peak "
+            f"device memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} "
+            f"GiB held; envelope {env.proof_data['proof_size_bytes']} B")
+        for k in AES_K7:
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by the warm "
+                                     f"{alg} stark proof")
+        if alg == "aes-128-ctr":
+            main_launches = launches
+        rec = recs.get(f"stark {alg} 80 B")
+        if rec is not None:            # proof 3, its K7 calls kept for phase 5
+            with rec:
+                rec.window = True
+                api.generate_proof(alg, key, ct, iv, engine="stark", device="cuda")
+                rec.window = False
+        t = time.time()
+        ok = api.verify_proof(env, ct, iv, engine="stark", device="cuda")
+        log(f"phase 10 {alg} verify_proof(engine='stark'): {ok} "
+            f"({time.time() - t:.2f} s)")
+        if not ok:
+            raise AssertionError(f"the port's stark verifier rejected the {alg} proof")
+        raw = bytearray(base64.b64decode(env.proof_data["proof"]))
+        raw[len(raw) // 2] ^= 1
+        bad_env = api.ProofEnvelope(env.algorithm, dict(
+            env.proof_data, proof=base64.b64encode(bytes(raw)).decode()),
+            env.plaintext, env.data_len)
+        for label, e, c in (("a flipped ciphertext byte", env,
+                             bytes([ct[0] ^ 1]) + ct[1:]),
+                            ("a flipped byte of the bincode payload", bad_env, ct)):
+            if api.verify_proof(e, c, iv, engine="stark", device="cuda"):
+                raise AssertionError(f"phase 10 {alg}: {label} verified")
+            log(f"phase 10 {alg} rejected: {label}")
+
+        # a 16 KiB TLS record: 1,024 blocks, N = 1,024, M = 8,192
+        pt = rnd.bytes(16384)
+        rct = ciphers.aes_ctr_encrypt(key, iv, 2, pt)
+        for i in (1, 2):
+            timings = {}
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.time()
+            proof = ap.prove_aes_ctr(key, iv, 2, pt, rct, device="cuda",
+                                     timings=timings)
+            torch.cuda.synchronize()
+            secs = time.time() - t
+            rl = counts()
+            peak = torch.cuda.max_memory_allocated() - held
+            log(f"phase 10 {alg} 16 KiB record (1,024 blocks), proof {i}: "
+                f"{secs:.3f} s ("
+                + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
+                + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; "
+                f"peak device memory {peak / 2**30:.3f} GiB; envelope "
+                f"{proof.to_envelope()['proof_size_bytes']} B")
+        if min(rl[k] for k in AES_K7) <= 0:
+            raise AssertionError(f"a K7 kernel was not launched by the {alg} "
+                                 f"record proof")
+        rec = recs.get(f"stark {alg} 16 KiB")
+        if rec is not None:            # proof 3, its K7 calls kept for phase 5
+            with rec:
+                rec.window = True
+                ap.prove_aes_ctr(key, iv, 2, pt, rct, device="cuda")
+                rec.window = False
+        t = time.time()
+        if not ap.verify_aes_ctr(proof, iv, 2, pt, rct, key_size, device="cuda"):
+            raise AssertionError(f"the {alg} 16 KiB record's proof did not verify")
+        log(f"phase 10 {alg} 16 KiB record verified ({time.time() - t:.2f} s)")
+
+    # the card's aes-128-ctr envelope equals the CPU's (plain versions,
+    # hashlib) under one seeded source of blinding bytes
+    key, iv = rnd.bytes(16), rnd.bytes(12)
+    pt = rnd.bytes(80)
+    ct = ciphers.aes_ctr_encrypt(key, iv, 2, pt)
+    envs = {}
+    for dev in ("cuda", "cpu"):
+        t = time.time()
+        envs[dev] = ap.prove_aes_ctr(key, iv, 2, pt, ct, device=dev,
+                                     rand_bytes=seeded_bytes(STARK_SEED)
+                                     ).to_envelope()
+        log(f"phase 10 seeded aes-128-ctr proof on {dev}: {time.time() - t:.3f} s")
+    if envs["cuda"] != envs["cpu"]:
+        raise AssertionError("the card's aes-128-ctr envelope differs from the CPU's")
+    log(f"phase 10 card and CPU aes-128-ctr envelopes equal byte for byte "
+        f"({envs['cpu']['proof_size_bytes']} B); phase 10 total "
+        f"{time.time() - t0:.2f} s")
+    return main_launches
+
+
+def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None):
     """Phase 5 for K7: the largest call of each K7 instance in one warm
     proof, replayed through the kernel (card-only and host-paced CUDA-event
     times) and its plain version (equal value for value), beside its
     bound; then every call of the proof replayed in order, summed per
-    kernel. Returns (rows, totals)."""
+    kernel. key_size: the AES AIR's, for K7d. Returns (rows, totals)."""
     from zksc_tpu_torch.ops import stark_kernels
     largest = {}
     for name, args in log_calls:
@@ -1766,7 +1982,7 @@ def time_stark_kernels(log_calls, imad_rate, path: str):
         kern = getattr(stark_kernels, name)
         run = lambda: kern(*args)
         ms, plain_ms, err = compare(f"{name} {variant}", run,
-                                    lambda: k7_plain(name, args),
+                                    lambda: k7_plain(name, args, key_size),
                                     lambda r: [r])
         paced = cuda_ms(run, reps=3, paced=True)
         bound, by, work = k7_bound_ms(name, args, imad_rate)
@@ -1795,29 +2011,40 @@ def time_stark_kernels(log_calls, imad_rate, path: str):
     return rows, tot
 
 
-def run_stark_phase5(rec_api, rec_record, imad_rate):
-    """Phase 5 for the stark engine's two warm proofs."""
+def run_stark_phase5(recs, imad_rate):
+    """Phase 5 for the stark engine's recorded warm proofs ({path:
+    StarkRecorder})."""
     rows, per_proof = [], {}
-    for path, rec in (("stark chacha20 128 B", rec_api),
-                      ("stark chacha20 16 KiB", rec_record)):
-        r, per_proof[path] = time_stark_kernels(rec.log, imad_rate, path)
+    for path, rec in recs.items():
+        r, per_proof[path] = time_stark_kernels(rec.log, imad_rate, path,
+                                                rec.key_size)
         rows += r
         rec.log = []
     return rows, per_proof
 
 
+# the path whose warm API proof gives each K7 kernel's entry in the kernels line
+K7_MAIN_PATH = {"blake2s": "stark chacha20 128 B",
+                "circle_layer": "stark chacha20 128 B",
+                "composition": "stark chacha20 128 B",
+                "aes_composition": "stark aes-128-ctr 80 B"}
+
+
 def stark_kernel_entries(rows, per_proof, launches, err):
     """The K7 entries of the kernels line: each kernel at its largest
-    instance of the warm API proof (the 128-byte chunk)."""
+    instance of the warm API proof of its path (K7a-c: the chacha20
+    128-byte chunk, launches from phase 9; K7d: the aes-128-ctr 80-byte
+    chunk, launches from phase 10). launches: {path: counts}."""
     entries = []
     for name in StarkRecorder.NAMES:
         mine = [r for r in rows if r["name"] == name]
-        main = max((r for r in mine if r["path"] == "stark chacha20 128 B"),
+        path = K7_MAIN_PATH[name]
+        main = max((r for r in mine if r["path"] == path),
                    key=lambda r: r["bound_ms"])
         entries.append({
             "name": name, "route": "cuda",
             "source": "zksc_tpu_torch/csrc/stark_kernels.cu",
-            "replaces": K7_REPLACES[name], "launches": launches[name],
+            "replaces": K7_REPLACES[name], "launches": launches[path][name],
             "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "path": main["path"], "shape": main["variant"],
@@ -1988,8 +2215,19 @@ def main(argv) -> int:
     drive_toprf(api, "chacha20-toprf", reset_counts, counts, rec_toprf)
 
     # ---- 9. the stark engine: chacha20, a 128-byte chunk and a 16 KiB record
-    rec_api, rec_record = StarkRecorder(), StarkRecorder()
-    stark_launches = drive_stark(api, reset_counts, counts, rec_api, rec_record)
+    stark_recs = {"stark chacha20 128 B": StarkRecorder(),
+                  "stark chacha20 16 KiB": StarkRecorder(),
+                  "stark aes-128-ctr 80 B": StarkRecorder(16),
+                  "stark aes-256-ctr 16 KiB": StarkRecorder(32)}
+    stark_launches = {"stark chacha20 128 B": drive_stark(
+        api, reset_counts, counts, stark_recs["stark chacha20 128 B"],
+        stark_recs["stark chacha20 16 KiB"])}
+
+    # ---- 10. the stark engine: aes-128-ctr and aes-256-ctr
+    t = time.time()
+    stark_launches["stark aes-128-ctr 80 B"] = drive_stark_aes(
+        api, reset_counts, counts, stark_recs)
+    log(f"phase 10 added {time.time() - t:.2f} s")
 
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")
@@ -2002,8 +2240,9 @@ def main(argv) -> int:
         per_proof[path] = proof_totals(rec.log, imad_rate, path, counts,
                                        reset_counts)
         rec.log = []
-    stark_rows, stark_per_proof = run_stark_phase5(rec_api, rec_record,
-                                                   imad_rate)
+    t = time.time()
+    stark_rows, stark_per_proof = run_stark_phase5(stark_recs, imad_rate)
+    log(f"phase 5 stark replays: {time.time() - t:.2f} s")
     log("phase 5 kernel timing done")
     if "--profile" in argv:
         profile_proof(lambda: api.generate_proof("chacha20", key, ct, iv,

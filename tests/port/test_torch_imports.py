@@ -54,13 +54,16 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zksc_tpu"))
 assert not bad, bad
-print(len(mods))
+print(" ".join(mods))
 """
     env = dict(os.environ, PYTHONPATH="")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT, env=env)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    mods = out.stdout.split()
+    assert len(mods) >= 27
+    assert {"zksc_tpu_torch.stark.aes_air",
+            "zksc_tpu_torch.stark.aes_prover"} <= set(mods)
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -103,5 +106,30 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         sp.verify_stream(None, bytes(12), 1, bytes(128), bytes(128))
     with pytest.raises(RuntimeError, match="CUDA"):
         StarkOperator("chacha20")
+    # the AES statements under the stark engine
+    from zksc_tpu_torch.stark import aes_prover as ap
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proof("aes-128-ctr", bytes(16), bytes(80), bytes(12),
+                           engine="stark")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ap.prove_aes_ctr(bytes(16), bytes(12), 2, bytes(80), bytes(80))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ap.verify_aes_ctr(None, bytes(12), 2, bytes(80), bytes(80), 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StarkOperator("aes-256-ctr")
     with pytest.raises(RuntimeError, match="CUDA"):
         merkle.commit(np.zeros((4, 16), dtype=np.uint8))
+
+
+def test_aes_composition_wrapper_refuses_cpu_tensors():
+    """K7d's wrapper launches on CUDA tensors only: no fallback on the CPU."""
+    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.stark import aes_air
+    idx, off, n, rows = stark_kernels.pack_aes_groups(aes_air.layout(16)[2])
+    vals = torch.zeros((max(rows) + 1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        stark_kernels.aes_composition(
+            vals, torch.arange(8, dtype=torch.int32), torch.from_numpy(idx),
+            off, n, rows, torch.tensor([0, 1]), (0,) * 8,
+            torch.zeros((stark_kernels.aes_n_constraints(n), 4), dtype=torch.int32),
+            torch.zeros(8, dtype=torch.int32))

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1, K2, K3 and K7a-c (zksc_tpu_torch/csrc/), run on the
+"""The CUDA sources of K1, K2, K3 and K7a-d (zksc_tpu_torch/csrc/), run on the
 CPU.
 
 No CUDA compiler exists here, so the sources are turned into plain C++ and
@@ -16,8 +16,9 @@ doubling, negation, affine and Jacobian Q in one warp) at lane counts that
 leave a ragged last block and an unpaired warp tail for the two-thread G2
 instances. The STARK kernels (K7a Blake2s from strided sources, K7b's four
 circle-FFT layer forms, K7c's sliced composition over the chacha20 AIR's
-index groups and its second launch, a 2-D grid) are held to their plain
-versions and K7a to hashlib. This checks the kernels' indexing, layouts,
+index groups and its second launch, a 2-D grid, and K7d's over the AES AIR
+with its sigma gather) are held to their plain versions and K7a to
+hashlib. This checks the kernels' indexing, layouts,
 branches and the lane-pair protocol; the card's own compiler and timing are
 chip_smoke.py's."""
 import ctypes
@@ -37,7 +38,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from zksc_tpu_torch.ops import ec, ec_kernels, msm, msm_kernels  # noqa: E402
 from zksc_tpu_torch.ops import stark_kernels  # noqa: E402
-from zksc_tpu_torch.stark import blake2s, chacha_air, circle  # noqa: E402
+from zksc_tpu_torch.stark import aes_air, blake2s, chacha_air, circle  # noqa: E402
+from zksc_tpu_torch.stark import aes_prover  # noqa: E402
 from zksc_tpu_torch.stark import prover as stark_prover  # noqa: E402
 
 SHIM = r'''
@@ -440,3 +442,30 @@ def test_k7c_emulated(stark_emu):
                                 vn_inv)
     assert torch.equal(got, stark_prover._composition_plain(vals, groups,
                                                             weights, vn_inv))
+
+
+@pytest.mark.parametrize("key_size", [16, 32])
+def test_k7d_emulated(stark_emu, key_size):
+    """K7d on the AES AIR's index groups (AES-128: 11,272 constraints in
+    ~120 slices cut by gathers; AES-256: 15,624) at M = 32 (N = 8, so sigma
+    shifts by 4 points) on random values, challenges, weights and V_N
+    inverses: equal to _composition_plain, which covers the sigma gather,
+    the interleaved lookup weights and the cum sum formed in one slice."""
+    import numpy as np
+    n1, n2, groups = aes_air.layout(key_size)
+    rng = np.random.default_rng(key_size)
+    R, M = n1 + n2 + aes_air.N_PUB + 1, 32
+    rand = lambda *shape: torch.from_numpy(
+        rng.integers(0, (1 << 31) - 1, shape).astype(np.int32))
+    vals, vn_inv = rand(R, M), rand(M)
+    vals[-1] = 0
+    weights = rand(aes_prover.n_constraints(key_size), 4)
+    za = tuple(int(v) for v in rng.integers(0, (1 << 31) - 1, 8))
+    perm = torch.from_numpy(aes_air.sigma_perm(M, M // 8))
+    idx, off, n, rows = stark_kernels.pack_aes_groups(groups)
+    bounds = torch.from_numpy(stark_kernels.aes_slices(n))
+    got = stark_emu.aes_composition(vals, perm, torch.from_numpy(idx), off, n,
+                                    rows, bounds, za, weights, vn_inv)
+    want = aes_prover._composition_plain(vals, perm, groups, za[:4], za[4:],
+                                         weights, vn_inv)
+    assert torch.equal(got, want)

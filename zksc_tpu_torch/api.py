@@ -2,10 +2,12 @@
 
 Ported from the JAX package's ``api.py`` for the six statements (chacha20,
 aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under the Groth16
-engine, and chacha20 under the "stark" engine (``engine="stark"``): chunk the ciphertext into cipher blocks, derive per-block counters
-from byte offsets, pad to the fixed circuit chunk size, decrypt locally to
-obtain the expected plaintext (the witness "out"), dispatch to the engine
-operator, wrap the proof envelope {algorithm, proofData, plaintext}. A
+engine, and chacha20, aes-128-ctr and aes-256-ctr under the "stark" engine
+(``engine="stark"``): chunk the ciphertext into cipher blocks, derive
+per-block counters from byte offsets, pad to the fixed circuit chunk size,
+decrypt locally to obtain the expected plaintext (the witness "out"),
+dispatch to the engine operator, wrap the proof envelope {algorithm,
+proofData, plaintext}. A
 ``-toprf`` proof keeps the plaintext private: its envelope carries none, and
 the verifier takes the TOPRF public signals instead.
 

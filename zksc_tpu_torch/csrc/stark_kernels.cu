@@ -31,6 +31,20 @@
 //    a second launch adds the slices' partials and multiplies by vn_inv.
 //    Addition mod p is exact, so any summation order gives the reference's
 //    values. Bound: the gathered bytes.
+// K7d aes_composition -- zksc_tpu/stark/aes_prover.py:_composition: K7c's
+//    form for the AES-CTR LogUp AIR. An "item" is one bool, const, xor, mix
+//    or eq constraint, one lookup instance (its four QM31 constraints, with
+//    weights base + 4j + c), the table's four constraints or the cum
+//    column's four. Item kinds in alpha-power order: bool | const | xor |
+//    mix | lookup | table | cum | eq. The grid is point tiles x slices of
+//    consecutive items; the wrapper cuts the slices so that each gathers
+//    about the same number of values. The sigma-shifted values (const and
+//    cum) are read as vals[row, perm[x]] in place, not from a shifted copy
+//    of vals. The cum item forms sum_j F_j(sigma x) over every lookup
+//    instance itself, so the sum is formed once per point in whichever
+//    slice holds that item. The summing launch is K7c's. Bound: the gathered
+//    values (~30.5k a point for AES-128) or, if they all hit the caches, the
+//    integer operations.
 //
 // Values at the boundary are canonical M31 residues in int32 (read here as
 // uint32); the wrappers are ops/stark_kernels.py.
@@ -283,6 +297,175 @@ __global__ void __launch_bounds__(kStarkThreads)
   }
 }
 
+// ------------------------------------------------------------------ K7d
+
+constexpr int kAesGroups = 6;    // packed fields: bool, const, xor, mix, lookup, eq
+
+struct AesAir {
+  const int32_t* idx;            // group g's field f of item i at
+  long long off[kAesGroups];     //   idx[off[g] + f * n[g] + i]; fields:
+  long long n[kAesGroups];       //   bool 1, const 1, xor A B R, mix T0-8 R
+                                 //   K0 K1 K2, lookup U0-7 V0-7 F0-3, eq KS PT CT
+  int32_t mult, tval, sval, tact;  // the table's rows
+  int32_t g[4], cum[4];            // the table fraction's and cum's rows
+  uint32_t z[4], a[4];             // LogUp challenges z, alpha (QM31 components)
+};
+
+struct AesPoint {
+  const uint32_t* __restrict__ vals;
+  long long M, x, sx;            // the point and sigma(x)
+  const AesAir* air;
+  const uint32_t* __restrict__ weights;
+  __device__ __forceinline__ int32_t ref(int g, int f, long long i) const {
+    return air->idx[air->off[g] + f * air->n[g] + i];
+  }
+  __device__ __forceinline__ uint32_t at(int32_t row) const { return vals[row * M + x]; }
+  __device__ __forceinline__ uint32_t sh(int32_t row) const { return vals[row * M + sx]; }
+};
+
+// acc[q] += w[k][q] * c, the term folded below 2^32
+__device__ __forceinline__ void add_term(uint64_t acc[4], const uint32_t* __restrict__ w,
+                                         uint32_t c) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint64_t t = (uint64_t)w[q] * c;
+    acc[q] += (t & kP31) + (t >> 31);
+  }
+}
+
+// QM31 product, components (a + b i) + (c + d i) u with u^2 = 2 + i
+__device__ __forceinline__ void qm31_mul(const uint32_t a[4], const uint32_t b[4],
+                                         uint32_t out[4]) {
+  const uint32_t c0 = m31_sub(m31_mul(a[0], b[0]), m31_mul(a[1], b[1]));
+  const uint32_t c1 = m31_add(m31_mul(a[0], b[1]), m31_mul(a[1], b[0]));
+  const uint32_t d0 = m31_sub(m31_mul(a[2], b[2]), m31_mul(a[3], b[3]));
+  const uint32_t d1 = m31_add(m31_mul(a[2], b[3]), m31_mul(a[3], b[2]));
+  const uint32_t e0 = m31_sub(m31_add(d0, d0), d1);          // (2 + i) d
+  const uint32_t e1 = m31_add(d0, m31_add(d1, d1));
+  out[0] = m31_add(c0, e0);
+  out[1] = m31_add(c1, e1);
+  out[2] = m31_add(m31_sub(m31_mul(a[0], b[2]), m31_mul(a[1], b[3])),
+                   m31_sub(m31_mul(a[2], b[0]), m31_mul(a[3], b[1])));
+  out[3] = m31_add(m31_add(m31_mul(a[0], b[3]), m31_mul(a[1], b[2])),
+                   m31_add(m31_mul(a[2], b[1]), m31_mul(a[3], b[0])));
+}
+
+// z - (u + alpha v), u and v in M31
+__device__ __forceinline__ void logup_den(const AesAir& air, uint32_t u, uint32_t v,
+                                          uint32_t d[4]) {
+  d[0] = m31_sub(air.z[0], m31_add(u, m31_mul(air.a[0], v)));
+#pragma unroll
+  for (int c = 1; c < 4; ++c) d[c] = m31_sub(air.z[c], m31_mul(air.a[c], v));
+}
+
+// the constraints of item i (of its kind) at one point, added with weights
+// from w (the item's first weight row)
+template <int KIND>
+__device__ __forceinline__ void aes_item(const AesPoint& p, long long i,
+                                         const uint32_t* __restrict__ w, uint64_t acc[4]) {
+  constexpr uint64_t P = kP31;
+  if (KIND == 0) {                        // bool: b (1 - b)
+    const uint64_t b = p.at(p.ref(0, 0, i));
+    add_term(acc, w, m31_red(b * (1 + P - b)));
+  } else if (KIND == 1) {                 // const: v(sigma x) - v(x)
+    const int32_t r = p.ref(1, 0, i);
+    add_term(acc, w, m31_sub(p.sh(r), p.at(r)));
+  } else if (KIND == 2) {                 // xor: R + 2AB - (A + B)
+    const uint64_t a = p.at(p.ref(2, 0, i)), b = p.at(p.ref(2, 1, i));
+    add_term(acc, w, m31_red(p.at(p.ref(2, 2, i)) + 2 * (uint64_t)m31_red(a * b) + 2 * P - a - b));
+  } else if (KIND == 3) {                 // mix: sum T - (R + 2 K0 + 4 K1 + 8 K2)
+    uint64_t s = 0;
+#pragma unroll
+    for (int f = 0; f < 9; ++f) s += p.at(p.ref(3, f, i));
+    const uint64_t dec = p.at(p.ref(3, 9, i)) + 2ull * p.at(p.ref(3, 10, i)) +
+                         4ull * p.at(p.ref(3, 11, i)) + 8ull * p.at(p.ref(3, 12, i));
+    add_term(acc, w, m31_red(s + 16 * P - dec));   // dec < 15 p
+  } else if (KIND == 4) {                 // lookup j: f_j (z - (u + alpha v)) - 1
+    uint64_t u = 0, v = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      u += (uint64_t)p.at(p.ref(4, b, i)) << b;
+      v += (uint64_t)p.at(p.ref(4, 8 + b, i)) << b;
+    }
+    uint32_t den[4], f[4], prod[4];
+    logup_den(*p.air, m31_red(u), m31_red(v), den);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[c] = p.at(p.ref(4, 16 + c, i));
+    qm31_mul(f, den, prod);
+    prod[0] = m31_sub(prod[0], 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) add_term(acc, w + 4 * c, prod[c]);
+  } else if (KIND == 5) {                 // table: g (z - (tval + alpha sval)) - m tact
+    const AesAir& air = *p.air;
+    uint32_t den[4], g[4], prod[4];
+    logup_den(air, p.at(air.tval), p.at(air.sval), den);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) g[c] = p.at(air.g[c]);
+    qm31_mul(g, den, prod);
+    prod[0] = m31_sub(prod[0], m31_mul(p.at(air.mult), p.at(air.tact)));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) add_term(acc, w + 4 * c, prod[c]);
+  } else if (KIND == 6) {                 // cum: cum(sx) - cum(x) - (sum_j f_j - g)(sx)
+    const AesAir& air = *p.air;
+    const long long n_lk = air.n[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t fsum = 0;                  // n_lk terms < 2^31 each
+      for (long long j = 0; j < n_lk; ++j) fsum += p.sh(p.ref(4, 16 + c, j));
+      const uint32_t F = m31_sub(m31_red(fsum), p.sh(air.g[c]));
+      add_term(acc, w + 4 * c, m31_sub(m31_sub(p.sh(air.cum[c]), p.at(air.cum[c])), F));
+    }
+  } else {                                // eq: KS + PT - (2 KS PT + CT)
+    const uint64_t ks = p.at(p.ref(5, 0, i)), pt = p.at(p.ref(5, 1, i));
+    add_term(acc, w, m31_red(ks + pt + 3 * P - 2 * (uint64_t)m31_red(ks * pt) - p.at(p.ref(5, 2, i))));
+  }
+}
+
+// items [start, start + count) of one kind, cut to the slice [i0, i1);
+// `width` constraints (weight rows) an item, the first at row wbase
+template <int KIND>
+__device__ __forceinline__ void aes_items(const AesPoint& p, long long start, long long count,
+                                          long long wbase, int width, long long i0, long long i1,
+                                          uint64_t acc[4]) {
+  const long long lo = i0 > start ? i0 : start;
+  const long long hi = i1 < start + count ? i1 : start + count;
+  for (long long i = lo; i < hi; ++i)
+    aes_item<KIND>(p, i - start, p.weights + 4 * (wbase + width * (i - start)), acc);
+}
+
+// grid (point tiles, slices); slice s holds items [bounds[s], bounds[s + 1]);
+// partial[(slice * 4 + q) * M + x], summed by composition_finish_kernel
+__global__ void __launch_bounds__(kStarkThreads)
+    aes_composition_kernel(const uint32_t* __restrict__ vals, long long M,
+                           const int32_t* __restrict__ perm, AesAir air,
+                           const long long* __restrict__ bounds,
+                           const uint32_t* __restrict__ weights, uint32_t* __restrict__ partial) {
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= M) return;
+  const AesPoint p{vals, M, x, (long long)perm[x], &air, weights};
+  const long long i0 = bounds[blockIdx.y], i1 = bounds[blockIdx.y + 1];
+  uint64_t acc[4] = {0, 0, 0, 0};
+  const long long* n = air.n;
+  long long s = 0, w = 0;                 // first item and weight row of a kind
+  aes_items<0>(p, s, n[0], w, 1, i0, i1, acc);
+  s += n[0], w += n[0];
+  aes_items<1>(p, s, n[1], w, 1, i0, i1, acc);
+  s += n[1], w += n[1];
+  aes_items<2>(p, s, n[2], w, 1, i0, i1, acc);
+  s += n[2], w += n[2];
+  aes_items<3>(p, s, n[3], w, 1, i0, i1, acc);
+  s += n[3], w += n[3];
+  aes_items<4>(p, s, n[4], w, 4, i0, i1, acc);
+  s += n[4], w += 4 * n[4];
+  aes_items<5>(p, s, 1, w, 4, i0, i1, acc);
+  s += 1, w += 4;
+  aes_items<6>(p, s, 1, w, 4, i0, i1, acc);
+  s += 1, w += 4;
+  aes_items<7>(p, s, n[5], w, 1, i0, i1, acc);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) partial[((long long)blockIdx.y * 4 + q) * M + x] = m31_red(acc[q]);
+}
+
 }  // namespace zksc
 
 extern "C" {
@@ -349,6 +532,46 @@ int zksc_composition(const void* vals, long long M, const void* idx, const long 
   zksc::composition_kernel<<<grid, block, 0, st>>>((const uint32_t*)vals, M, gr,
                                                    (const uint32_t*)weights, slice,
                                                    (uint32_t*)partial);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const dim3 grid2(zksc::stark_grid(4 * M));
+  zksc::composition_finish_kernel<<<grid2, block, 0, st>>>(
+      (const uint32_t*)partial, M, n_slices, (const uint32_t*)vn_inv, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K7d. vals: [R, M]; perm: sigma as an index map [M]; idx: the packed fields
+// (off, n: 6 entries each, bool/const/xor/mix/lookup/eq); rows: mult, tval,
+// sval, tact, g[4], cum[4]; za: z[4], alpha[4]; bounds: [n_slices + 1] item
+// bounds on the device; weights: [K, 4]; partial: [n_slices, 4, M] scratch;
+// out: [4, M].
+int zksc_aes_composition(const void* vals, long long M, const void* perm, const void* idx,
+                         const long long* off, const long long* n, const int* rows,
+                         const unsigned* za, const void* bounds, long long n_slices,
+                         const void* weights, void* partial, const void* vn_inv, void* out,
+                         void* stream) {
+  if (M <= 0) return (int)cudaSuccess;
+  if (n_slices <= 0 || n_slices > 65535) return (int)cudaErrorInvalidValue;
+  zksc::AesAir air;
+  air.idx = (const int32_t*)idx;
+  for (int g = 0; g < zksc::kAesGroups; ++g) {
+    air.off[g] = off[g];
+    air.n[g] = n[g];
+  }
+  air.mult = rows[0], air.tval = rows[1], air.sval = rows[2], air.tact = rows[3];
+  for (int c = 0; c < 4; ++c) {
+    air.g[c] = rows[4 + c];
+    air.cum[c] = rows[8 + c];
+    air.z[c] = za[c];
+    air.a[c] = za[4 + c];
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned)((M + zksc::kStarkThreads - 1) / zksc::kStarkThreads),
+                  (unsigned)n_slices);
+  const dim3 block(zksc::kStarkThreads);
+  zksc::aes_composition_kernel<<<grid, block, 0, st>>>(
+      (const uint32_t*)vals, M, (const int32_t*)perm, air, (const long long*)bounds,
+      (const uint32_t*)weights, (uint32_t*)partial);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const dim3 grid2(zksc::stark_grid(4 * M));

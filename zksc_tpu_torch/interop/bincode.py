@@ -1,8 +1,8 @@
 """bincode v1 codec for the Circle-STARK proof envelopes.
 
 Ported from the JAX package's ``interop/bincode.py``: the Writer/Reader, the
-FRI and row codecs, and the ChaCha20 stream proof with its envelope. The
-AES proofs' codec comes with the AES slice of the ``stark`` engine.
+FRI and row codecs, the ChaCha20 stream proof and the AES-CTR proof, with
+their envelopes.
 
 The reference's stwo engine ships proofs as `base64(bincode::serialize(proof))`
 (stwo/src/wasm_api.rs:588-601, decoded under an 8 MB DoS cap at :27,617-639).
@@ -23,6 +23,13 @@ Struct schemas (field order = encode order):
                     openings: Vec<Vec<FriLayerOpening>> }
   TraceOpening    { values: Vec<u32>, path: Vec<[u8;32]> }
   StreamProof     { stmt, trace_root: [u8;32], fri, openings: Vec<TraceOpening> }
+  AesStatement    { key_size: u32, log_rows: u32, n_blocks: u32,
+                    nonce: Vec<u8>, counter0: u32, pt_hash: [u8;32],
+                    ct_hash: [u8;32] }
+  RowOpening      { values: Vec<u32>, path: Vec<[u8;32]> }
+  AesProof        { stmt, root1: [u8;32], root2: [u8;32], fri,
+                    openings1, openings1s, openings2, openings2s:
+                    Vec<RowOpening> }
 
 The JSON envelope carrying the payload uses the reference's keys
 {"success", "blocks", "algorithm", "proof": base64, "proof_size_bytes"}
@@ -216,6 +223,43 @@ def decode_stream_proof(data: bytes):
                        openings=openings)
 
 
+# ---- AES-CTR proof ----
+
+def encode_aes_proof(proof) -> bytes:
+    w = Writer()
+    s = proof.stmt
+    w.u32(s.key_size)
+    w.u32(s.log_rows)
+    w.u32(s.n_blocks)
+    w.bytes_(s.nonce)
+    w.u32(s.counter0)
+    w.digest(s.pt_hash)
+    w.digest(s.ct_hash)
+    w.digest(proof.root1)
+    w.digest(proof.root2)
+    _write_fri(w, proof.fri)
+    for rows in (proof.openings1, proof.openings1s,
+                 proof.openings2, proof.openings2s):
+        _write_rows(w, rows)
+    return w.getvalue()
+
+
+def decode_aes_proof(data: bytes):
+    from ..stark.aes_prover import AesProof, AesStatement, RowOpening
+    r = Reader(data)
+    stmt = AesStatement(
+        key_size=r.u32(), log_rows=r.u32(), n_blocks=r.u32(),
+        nonce=r.bytes_(), counter0=r.u32(), pt_hash=r.digest(),
+        ct_hash=r.digest())
+    root1, root2 = r.digest(), r.digest()
+    fri = _read_fri(r)
+    rows = [_read_rows(r, RowOpening) for _ in range(4)]
+    r.done()
+    return AesProof(stmt=stmt, root1=root1, root2=root2, fri=fri,
+                    openings1=rows[0], openings1s=rows[1],
+                    openings2=rows[2], openings2s=rows[3])
+
+
 # ---- base64 envelopes (the reference's {proof, proof_size_bytes} shape) ----
 
 def stream_proof_envelope(proof) -> dict:
@@ -223,6 +267,16 @@ def stream_proof_envelope(proof) -> dict:
     raw = encode_stream_proof(proof)
     return {"success": True, "blocks": int(proof.stmt.n_blocks),
             "algorithm": "chacha20", "protocol": "circle-stark",
+            "proof": base64.b64encode(raw).decode(),
+            "proof_size_bytes": len(raw)}
+
+
+def aes_proof_envelope(proof) -> dict:
+    import base64
+    raw = encode_aes_proof(proof)
+    alg = "aes-128-ctr" if proof.stmt.key_size == 16 else "aes-256-ctr"
+    return {"success": True, "blocks": int(proof.stmt.n_blocks),
+            "algorithm": alg, "protocol": "circle-stark-aes",
             "proof": base64.b64encode(raw).decode(),
             "proof_size_bytes": len(raw)}
 
@@ -235,7 +289,8 @@ def proof_from_envelope(d: dict):
     b64 = d["proof"]
     if len(b64) > _MAX_PROOF_BYTES:
         raise ValueError("proof exceeds the 8 MB cap")
+    raw = base64.b64decode(b64)
     if (d.get("protocol") == "circle-stark-aes"
             or str(d.get("algorithm", "")).startswith("aes")):
-        raise ValueError("the AES stark proofs are not ported yet")
-    return decode_stream_proof(base64.b64decode(b64))
+        return decode_aes_proof(raw)
+    return decode_stream_proof(raw)

@@ -2,9 +2,10 @@
 
 Ported from the JAX package's ``operators.py``: the six statements
 (chacha20, aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under
-the "groth16" engine, and chacha20 under the "stark" engine (Circle STARK
-over M31). The AES statements under "stark", the "stark-stwo" engine and
-the multi-device mesh are not ported yet; asking for them raises.
+the "groth16" engine, and chacha20, aes-128-ctr and aes-256-ctr under the
+"stark" engine (Circle STARK over M31). The "stark-stwo" engine, the
+``-toprf`` statements under "stark" and the multi-device mesh are not
+ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -201,11 +202,12 @@ class Groth16Operator:
 class StarkOperator:
     """Circle-STARK engine ("stark") on `device` (default "cuda"): single
     nonce, sequential counters, the proof as the base64-bincode envelope.
-    chacha20 uses the stream AIR (stark/prover.py); the AES statements
-    under this engine are not ported yet. The blinding bytes come from
-    secrets.token_bytes (stark.prover.prove_stream takes others)."""
+    chacha20 uses the stream AIR (stark/prover.py); aes-128-ctr and
+    aes-256-ctr use the LogUp lookup AIR (stark/aes_prover.py). The
+    blinding bytes come from secrets.token_bytes (prove_stream and
+    prove_aes_ctr take others)."""
 
-    ALGORITHMS = ("chacha20",)
+    ALGORITHMS = ("chacha20", "aes-128-ctr", "aes-256-ctr")
 
     def __init__(self, algorithm: str, device=None):
         if algorithm not in self.ALGORITHMS:
@@ -227,15 +229,21 @@ class StarkOperator:
         return nonce, counter0
 
     def prove(self, wi: ZKProofInput, rng=None) -> dict:
-        from .stark import prover as sp
         if rng is not None:
             raise ValueError("the stark engine takes no rng: its blinding "
                              "bytes come from secrets.token_bytes")
         nonce, counter0 = self._check_blocks(wi.blocks)
         timings = {}
-        proof = sp.prove_stream(wi.key, nonce, counter0, wi.plaintext,
-                                wi.ciphertext, device=self.device,
-                                timings=timings)
+        if self.algorithm == "chacha20":
+            from .stark import prover as sp
+            proof = sp.prove_stream(wi.key, nonce, counter0, wi.plaintext,
+                                    wi.ciphertext, device=self.device,
+                                    timings=timings)
+        else:
+            from .stark import aes_prover as ap
+            proof = ap.prove_aes_ctr(wi.key, nonce, counter0, wi.plaintext,
+                                     wi.ciphertext, device=self.device,
+                                     timings=timings)
         self.timings = timings
         return proof.to_envelope()
 
@@ -247,7 +255,6 @@ class StarkOperator:
         api.get_public_signals (per block: counter LE bits, nonce bits,
         ciphertext bits, plaintext bits), decoded back to byte inputs. Any
         exception gives False."""
-        from .stark import prover as sp
         cfg = CONFIG[self.algorithm]
         bs = cfg.block_size_bytes
         per_block = 32 + 96 + 8 * bs + 8 * bs
@@ -278,9 +285,16 @@ class StarkOperator:
                     nonce, counter0 = nnc, ctr
                 elif nnc != nonce or ctr != counter0 + blk:
                     return False
-            proof = sp.StreamProof.from_json_dict(proof_data)
-            return sp.verify_stream(proof, nonce, counter0, b"".join(pts),
-                                    b"".join(cts), device=self.device)
+            if self.algorithm == "chacha20":
+                from .stark import prover as sp
+                proof = sp.StreamProof.from_json_dict(proof_data)
+                return sp.verify_stream(proof, nonce, counter0, b"".join(pts),
+                                        b"".join(cts), device=self.device)
+            from .stark import aes_prover as ap
+            proof = ap.AesProof.from_json_dict(proof_data)
+            return ap.verify_aes_ctr(proof, nonce, counter0, b"".join(pts),
+                                     b"".join(cts), cfg.key_size_bytes,
+                                     device=self.device)
         except Exception:
             return False
 

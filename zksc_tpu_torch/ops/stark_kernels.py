@@ -7,6 +7,9 @@
     evaluate, which XLA fuses.
   - composition (K7c): the constraint composition divided by V_N; replaces
     zksc_tpu/stark/prover.py:_composition.
+  - aes_composition (K7d): the same for the AES-CTR LogUp AIR, with the
+    sigma-shifted rows read in place; replaces
+    zksc_tpu/stark/aes_prover.py:_composition.
 
 Source: ``csrc/stark_kernels.cu`` (with ``csrc/m31.cuh``), compiled for
 sm_90a by one plain ``nvcc`` call into ``build/libzksc_stark.so`` at first
@@ -15,7 +18,7 @@ use (ops/cuda_build.py) and loaded with ctypes.
 These functions launch on CUDA tensors only (on the current stream, without
 synchronising) and raise on anything else; the callers in ``stark/`` send a
 CPU tensor to the plain PyTorch versions beside them (``blake2s.py``,
-``circle.py``, ``prover.py``). ``LAUNCHES`` counts real kernel launches.
+``circle.py``, ``prover.py``, ``aes_prover.py``). ``LAUNCHES`` counts real kernel launches.
 """
 from __future__ import annotations
 
@@ -26,11 +29,15 @@ import torch
 
 from . import cuda_build
 
-LAUNCHES = {"blake2s": 0, "circle_layer": 0, "composition": 0}
+LAUNCHES = {"blake2s": 0, "circle_layer": 0, "composition": 0,
+            "aes_composition": 0}
 
 # constraints per K7c slice: grid (ceil(M / 128) point tiles) x (53,504 /
 # 128 = 418 slices) at the chacha20 AIR, ~3,300 blocks at M = 1,024
 COMPOSITION_SLICE = 128
+# values gathered per K7d slice (aes_slices): ~120 slices x 16 point tiles
+# for the AES-128 AIR (~30.5k values a point) at M = 2,048
+AES_SLICE_GATHERS = 256
 
 
 def reset_launch_counts():
@@ -48,6 +55,10 @@ def _declare(lib):
     lib.zksc_composition.restype = ci
     lib.zksc_composition.argtypes = [vp, cll, vp, lls, lls, vp, cll, vp, vp,
                                      vp, vp]
+    lib.zksc_aes_composition.restype = ci
+    lib.zksc_aes_composition.argtypes = [
+        vp, cll, vp, vp, lls, lls, ctypes.POINTER(ci),
+        ctypes.POINTER(ctypes.c_uint), vp, cll, vp, vp, vp, vp, vp]
 
 
 def _lib():
@@ -204,4 +215,129 @@ def composition(vals: torch.Tensor, idx: torch.Tensor, off: tuple, n: tuple,
                                  out.data_ptr(), _stream(vals))
     _raise_on(rc, "composition")
     LAUNCHES["composition"] += 2    # composition_kernel, composition_finish_kernel
+    return out
+
+
+# ---------------------------------------------------------------- K7d
+
+AES_GROUP_FIELDS = (
+    ("bool", (None,)),
+    ("const", (None,)),
+    ("xor", (("A", None), ("B", None), ("R", None))),
+    ("mix", tuple(("T", f) for f in range(9)) + (("R", None), ("K0", None),
+                                                 ("K1", None), ("K2", None))),
+    ("lookup", tuple(("U", f) for f in range(8)) + tuple(("V", f) for f in range(8))
+     + tuple(("F", f) for f in range(4))),
+    ("eq", (("KS", None), ("PT", None), ("CT", None))))
+
+
+def pack_aes_groups(groups: dict) -> tuple:
+    """The AES AIR's index groups (aes_air.layout(key_size)[2]) -> (idx
+    int32 numpy array, off, n, rows): group g's field f of item i at
+    idx[off[g] + f * n[g] + i], groups bool, const, xor, mix, lookup, eq
+    (K7d's AesAir); rows = (M, TVAL, SVAL, TACT, G[0..3], cum[0..3])."""
+    parts, off, n, at = [], [], [], 0
+    for name, fields in AES_GROUP_FIELDS:
+        g = groups[name]
+        if fields == (None,):
+            cols = [np.asarray(g)]
+        else:
+            cols = [np.asarray(g[k]) if c is None else np.asarray(g[k])[:, c]
+                    for k, c in fields]
+        off.append(at)
+        n.append(len(cols[0]))
+        for c in cols:
+            parts.append(c.astype(np.int32))
+            at += len(c)
+    tb = groups["table"]
+    rows = (int(tb["M"]), int(tb["TVAL"]), int(tb["SVAL"]), int(tb["TACT"]),
+            *(int(r) for r in tb["G"]), *(int(r) for r in groups["cum"]))
+    return np.concatenate(parts), tuple(off), tuple(n), rows
+
+
+def aes_n_constraints(n: tuple) -> int:
+    """Weight rows of the AES AIR from pack_aes_groups' n: four a lookup
+    instance, four each for the table and cum."""
+    return n[0] + n[1] + n[2] + n[3] + 4 * n[4] + 8 + n[5]
+
+
+# K7d's item kinds, in the order of its items and of the alpha powers
+AES_KINDS = ("bool", "const", "xor", "mix", "lookup", "table", "cum", "eq")
+
+
+def aes_item_counts(n: tuple) -> dict:
+    """Items of each kind from pack_aes_groups' n (one table, one cum)."""
+    return dict(zip(AES_KINDS, (n[0], n[1], n[2], n[3], n[4], 1, 1, n[5])))
+
+
+def aes_item_gathers(n_lookups: int) -> dict:
+    """Values K7d gathers from vals for one item of each kind: the table
+    reads TVAL, SVAL, G (4), M and TACT; the cum item reads each lookup's
+    four F columns and G at sigma(x), and cum at x and sigma(x)."""
+    return {"bool": 1, "const": 2, "xor": 3, "mix": 13, "lookup": 20,
+            "table": 8, "cum": 4 * n_lookups + 12, "eq": 3}
+
+
+def aes_slices(n: tuple) -> np.ndarray:
+    """K7d's slice bounds over its items (AES_KINDS order) as int64
+    [n_slices + 1]: consecutive items, a new slice where the values gathered
+    would pass AES_SLICE_GATHERS."""
+    counts, gathers = aes_item_counts(n), aes_item_gathers(n[4])
+    costs = np.concatenate([np.full(counts[k], gathers[k]) for k in AES_KINDS])
+    bounds, acc = [0], 0
+    for i, c in enumerate(costs):
+        if acc and acc + c > AES_SLICE_GATHERS:
+            bounds.append(i)
+            acc = 0
+        acc += c
+    bounds.append(len(costs))
+    return np.asarray(bounds, dtype=np.int64)
+
+
+def aes_composition(vals: torch.Tensor, perm: torch.Tensor, idx: torch.Tensor,
+                    off: tuple, n: tuple, rows: tuple, bounds: torch.Tensor,
+                    za: tuple, weights: torch.Tensor,
+                    vn_inv: torch.Tensor) -> torch.Tensor:
+    """K7d: Q = (sum_k w_k c_k) / V_N as int32 [4, M] for the AES AIR from
+    vals [R, M], sigma as the index map perm [M], the packed index groups
+    (pack_aes_groups: idx on the device, off, n, rows), the slice bounds
+    (aes_slices, int64 on the device), za = z (4) + alpha (4) of the LogUp
+    draw, weights [K, 4] and vn_inv [M]. Two launches: the sliced sums,
+    then K7c's total."""
+    _check(vals, "aes_composition vals")
+    if vals.dim() != 2:
+        raise ValueError(f"aes_composition: expected vals [R, M], got {tuple(vals.shape)}")
+    R, M = vals.shape
+    if len(off) != 6 or len(n) != 6 or len(rows) != 12 or len(za) != 8:
+        raise ValueError("aes_composition: expected six index groups, 12 "
+                         "rows and 8 challenge components")
+    _check(perm, "aes_composition perm", shape=(M,))
+    _check(idx, "aes_composition idx", shape=(off[-1] + 3 * n[-1],))
+    _check(weights, "aes_composition weights", shape=(aes_n_constraints(n), 4))
+    _check(vn_inv, "aes_composition vn_inv", shape=(M,))
+    _require_cuda(bounds, "aes_composition bounds")
+    if bounds.dtype != torch.int64 or bounds.dim() != 1 or not bounds.is_contiguous():
+        raise ValueError("aes_composition: bounds must be contiguous int64 [n_slices + 1]")
+    for t in (perm, idx, bounds, weights, vn_inv):
+        if t.device != vals.device:
+            raise ValueError("aes_composition: operands on different devices")
+    if not all(0 <= r < R for r in rows):
+        raise ValueError("aes_composition: a table or cum row outside vals")
+    if not all(0 <= v < (1 << 31) - 1 for v in za):
+        raise ValueError("aes_composition: a challenge component is not canonical")
+    n_slices = bounds.numel() - 1
+    if not 1 <= n_slices <= 65535:
+        raise ValueError(f"aes_composition: {n_slices} slices")
+    partial = torch.empty((n_slices, 4, M), dtype=torch.int32, device=vals.device)
+    out = torch.empty((4, M), dtype=torch.int32, device=vals.device)
+    if M == 0:
+        return out
+    rc = _lib().zksc_aes_composition(
+        vals.data_ptr(), M, perm.data_ptr(), idx.data_ptr(),
+        (ctypes.c_longlong * 6)(*off), (ctypes.c_longlong * 6)(*n),
+        (ctypes.c_int * 12)(*rows), (ctypes.c_uint * 8)(*za),
+        bounds.data_ptr(), n_slices, weights.data_ptr(), partial.data_ptr(),
+        vn_inv.data_ptr(), out.data_ptr(), _stream(vals))
+    _raise_on(rc, "aes_composition")
+    LAUNCHES["aes_composition"] += 2   # aes_composition_kernel, composition_finish_kernel
     return out

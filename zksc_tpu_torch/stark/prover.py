@@ -333,13 +333,13 @@ def _lde(fft_n: CircleFFT, fft_m: CircleFFT, cols: np.ndarray, n_blinded: int,
 
 
 def _stage(timings, name: str, t0: float, device) -> float:
-    """Record the seconds since t0 under `name` (after the device is done)."""
+    """Add the seconds since t0 to `name` (after the device is done)."""
     if timings is None:
         return t0
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t = time.perf_counter()
-    timings[name] = t - t0
+    timings[name] = timings.get(name, 0.0) + t - t0
     return t
 
 
