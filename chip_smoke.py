@@ -55,7 +55,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      interpolate and evaluate at log N = 3, 6, 8, 10, 11, 16, 20 over 1
      column and over min(4,096, 2^28 / N) columns, with the round trip;
      K7c at M = 1,024 on the chacha20 AIR's index groups with random
-     values; K7d on the AES-128 and AES-256 AIRs' index groups at M =
+     values; at the stark-stwo shapes, K7c on its AIR's groups at M = 32
+     and 512 and K7b interpolate [33,280, 16] and evaluate [33,280, 32]; K7d on the AES-128 and AES-256 AIRs' index groups at M =
      2,048 (the 80-byte chunk) and on AES-256's at M = 8,192 (the 16 KiB
      record), random values and challenges, sigma as the prover's. Then
      the Merkle crossover: one layer of 4-4,096 node pairs or
@@ -114,8 +115,24 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      for phase 5) and verify_aes_ctr; the aes-128-ctr chunk proved on the
      card and on the CPU under one seeded rand_bytes: the envelopes must
      be equal byte for byte.
+ 11. the stark-stwo engine (chacha20, byte-identical stwo proofs): the two
+     committed upstream proofs (tests/fixtures/stwo_ref_proof_chacha_ls4 /
+     _ls5) proved on the card, each equal to the fixture byte for byte;
+     api.generate_proof("chacha20", ..., engine="stark-stwo") on a
+     128-byte chunk cold, warm (the launch counters reset just before it,
+     K7a, K7b and K7c must all be > 0; stage seconds, peak device memory,
+     envelope size) and once more for phase 5 (equal bytes); verify_proof(
+     ..., engine="stark-stwo") accepts it and rejects a flipped ciphertext
+     byte and a flipped byte of the base64 payload; prove_stream_bytes on
+     a 16 KiB record (256 blocks, log size 8) twice with the same checks
+     and once more for phase 5, verified by the port's stwo verifier (a
+     flipped ciphertext byte rejected); the record proved on the CPU
+     (plain versions, hashlib): equal to the card's byte for byte; the
+     host tables a first proof builds (the AIR's layout, each log size's
+     domains and row maps) rebuilt and timed.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
-     6, 7, 8, 9 and 10): the first of the largest inputs each kernel variant got in
+     6, 7, 8, 9, 10 and 11): the first of the largest inputs each kernel
+     variant got in
      each path is replayed through the kernel and its plain version (equal
      limb for limb; for K3 over more than 128 lanes the plain version runs
      on a sample of an unreduced input's lanes that reaches every block of
@@ -130,7 +147,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      the adds whose Q is affine, which also go into the kernels line;
      likewise for the recorded chacha20-toprf proof of phase 8. For the
      stark engine's warm proofs (phase 9's chacha20 chunk and record, phase
-     10's aes-128-ctr chunk and aes-256-ctr record): the largest call of each K7
+     10's aes-128-ctr chunk and aes-256-ctr record, phase 11's stark-stwo
+     chunk and record): the largest call of each K7
      instance replayed through the kernel and its plain version (equal),
      timed and set beside its bound (the larger of integer operations over
      the card's rate and the bytes read once and written once over HBM),
@@ -1534,9 +1552,10 @@ def k7_variant(name, args) -> str:
     return f"M={args[0].shape[1]} R={args[0].shape[0]}"
 
 
-def k7_plain(name, args, key_size=None):
+def k7_plain(name, args, key_size=None, groups=None):
     """The plain version of one K7 call on the same inputs (key_size: the
-    AES AIR's, for K7d)."""
+    AES AIR's, for K7d; groups: K7c's index groups, default the stark
+    engine's chacha20 AIR)."""
     from zksc_tpu_torch.stark import blake2s, chacha_air, circle, prover
     if name == "blake2s":
         return blake2s.hash_strided_plain(*args)
@@ -1545,8 +1564,9 @@ def k7_plain(name, args, key_size=None):
     if name == "aes_composition":
         return k7d_plain(key_size, *args)
     vals, idx, off, n, weights, vn_inv = args[:6]
-    return prover._composition_plain(vals, chacha_air.layout()[1], weights,
-                                     vn_inv)
+    if groups is None:
+        groups = chacha_air.layout()[1]
+    return prover._composition_plain(vals, groups, weights, vn_inv)
 
 
 def k7d_plain(key_size, vals, perm, idx, off, n, rows, bounds, za, weights,
@@ -1562,13 +1582,16 @@ class StarkRecorder:
     """Wraps stark_kernels' four launchers (the wrapped functions run
     unchanged); while `window` is set it keeps every call, in order, with
     its arguments (`log`), holding its inputs. key_size: the AES AIR's of
-    the recorded proof (for K7d's plain version)."""
+    the recorded proof (for K7d's plain version); groups: K7c's index
+    groups of the recorded proof's AIR (default the stark engine's
+    chacha20 AIR)."""
 
     NAMES = ("blake2s", "circle_layer", "composition", "aes_composition")
 
-    def __init__(self, key_size=None):
+    def __init__(self, key_size=None, groups=None):
         from zksc_tpu_torch.ops import stark_kernels
         self.key_size = key_size
+        self.groups = groups
         self.mod = stark_kernels
         self.orig = {n: getattr(stark_kernels, n) for n in self.NAMES}
         self.log = []
@@ -1658,7 +1681,45 @@ def check_stark_kernels(device):
         lambda r: [r])
     log(f"phase 3 K7c composition on the chacha20 AIR at M={M} (random "
         f"values): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
-    return max(err, e, check_k7d(device, m31))
+    return max(err, e, check_stwo_shapes(device, m31), check_k7d(device, m31))
+
+
+def check_stwo_shapes(device, m31):
+    """Phase 3 at the stark-stwo engine's shapes: K7c over its AIR's groups
+    (54,784 constraints, R = 33,281) at M = 32 (the 128-byte chunk) and 512
+    (the 16 KiB record), and K7b interpolate [33,280, 16] and evaluate
+    [33,280, 32] (the chunk's), each equal to its plain version on random
+    values. Returns the max_abs_err (0)."""
+    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.stark import circle, prover
+    from zksc_tpu_torch.stark.stwo_compat import air
+    from zksc_tpu_torch.stark.stwo_compat import prover as stwo_prover
+    err = 0
+    groups = air.layout()[0]
+    idx, off, n, _ = stwo_prover._layout_on(device)
+    for M in (32, 512):
+        vals, vn_inv = m31(air.N_COLS + 1, M), m31(M)
+        weights = m31(air.N_CONSTRAINTS, 4)
+        ms, plain_ms, e = compare(
+            f"K7c stwo M={M}",
+            lambda: stark_kernels.composition(vals, idx, off, n, weights, vn_inv),
+            lambda: prover._composition_plain(vals, groups, weights, vn_inv),
+            lambda r: [r])
+        err = max(err, e)
+        log(f"phase 3 K7c composition on the stark-stwo AIR at M={M} (random "
+            f"values): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
+    for log_n, what in ((4, "interpolate"), (5, "evaluate")):
+        fft = circle.CircleFFT(log_n)
+        x = m31(air.N_COLS, 1 << log_n)
+        run, plain = ((lambda: fft.interpolate(x), lambda: fft.interpolate_plain(x))
+                      if what == "interpolate" else
+                      (lambda: fft.evaluate(x), lambda: fft.evaluate_plain(x)))
+        ms, plain_ms, e = compare(f"K7b stwo {what} 2^{log_n}", run, plain,
+                                  lambda r: [r])
+        err = max(err, e)
+        log(f"phase 3 K7b {what} [{air.N_COLS}, 2^{log_n}] (stark-stwo): kernel "
+            f"{ms:.4f} ms ({log_n} launches), plain {plain_ms:.1f} ms, equal")
+    return err
 
 
 def check_k7d(device, m31):
@@ -1964,12 +2025,169 @@ def drive_stark_aes(api, reset_counts, counts, recs) -> dict:
     return main_launches
 
 
-def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None):
+STWO_SEED = 20243         # seed of phase 11's inputs
+# the committed upstream stwo proofs and their plaintexts (key range(32),
+# nonce range(12), counter 1)
+STWO_FIXTURES = {"ls4": bytes((i * 7 + 3) & 0xFF for i in range(64)),
+                 "ls5": bytes((i * 11 + 5) & 0xFF for i in range(64 * 17))}
+
+
+def drive_stwo(api, reset_counts, counts, rec_api, rec_record) -> dict:
+    """Phase 11: the stark-stwo engine on the card. Returns the warm API
+    proof's launch counts."""
+    import base64
+    import gzip
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.ops import ciphers
+    from zksc_tpu_torch.stark.stwo_compat import prover as wp
+    from zksc_tpu_torch.stark.stwo_compat import verifier as wv
+    t0 = time.time()
+    key, nonce = bytes(range(32)), bytes(range(12))
+    for tag, pt in STWO_FIXTURES.items():
+        path = os.path.join(HERE, "tests", "fixtures",
+                            f"stwo_ref_proof_chacha_{tag}.bin.gz")
+        with gzip.open(path, "rb") as f:
+            want = f.read()
+        ct = ciphers.chacha20_encrypt(key, nonce, 1, pt)
+        t = time.time()
+        got = wp.prove_stream_bytes(key, nonce, 1, pt, ct, device="cuda")
+        if got != want:
+            raise AssertionError(f"phase 11: the {tag} proof differs from the "
+                                 f"upstream fixture")
+        log(f"phase 11 stwo fixture {tag} ({len(pt) // 64} blocks) proved on "
+            f"the card: equal to the upstream proof byte for byte ({len(got)} "
+            f"B, {time.time() - t:.3f} s)")
+
+    rnd = np.random.default_rng(STWO_SEED)
+    key, iv, ct = rnd.bytes(32), rnd.bytes(12), rnd.bytes(128)
+    t = time.time()
+    api.generate_proof("chacha20", key, ct, iv, engine="stark-stwo", device="cuda")
+    log(f"phase 11 stark-stwo chacha20 128-byte chunk, proof 1 (cold): "
+        f"{time.time() - t:.3f} s")
+    op = api.get_operator("chacha20", "stark-stwo", "cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.time()
+    env = api.generate_proof("chacha20", key, ct, iv, engine="stark-stwo",
+                             device="cuda")
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
+    log(f"phase 11 proof 2 (warm): {secs:.3f} s ({stages}); launches "
+        f"{ {k: launches[k] for k in StarkRecorder.NAMES} }; peak device "
+        f"memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} GiB held; "
+        f"envelope {env.proof_data['proof_size_bytes']} B")
+    for k in CHACHA_K7:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the warm "
+                                 f"stark-stwo proof")
+    with rec_api:                      # proof 3, its K7 calls kept for phase 5
+        rec_api.window = True
+        env3 = api.generate_proof("chacha20", key, ct, iv, engine="stark-stwo",
+                                  device="cuda")
+        rec_api.window = False
+    if env3.proof_data != env.proof_data:
+        raise AssertionError("phase 11: two proofs of one chunk differ")
+    t = time.time()
+    ok = api.verify_proof(env, ct, iv, engine="stark-stwo", device="cuda")
+    log(f"phase 11 verify_proof(engine='stark-stwo'): {ok} "
+        f"({time.time() - t:.2f} s)")
+    if not ok:
+        raise AssertionError("the port's stwo verifier rejected the proof")
+    raw = bytearray(base64.b64decode(env.proof_data["proof"]))
+    raw[len(raw) // 2] ^= 1
+    bad_env = api.ProofEnvelope(env.algorithm, dict(
+        env.proof_data, proof=base64.b64encode(bytes(raw)).decode()),
+        env.plaintext, env.data_len)
+    for label, e, c in (("a flipped ciphertext byte", env,
+                         bytes([ct[0] ^ 1]) + ct[1:]),
+                        ("a flipped byte of the base64 payload", bad_env, ct)):
+        t = time.time()
+        if api.verify_proof(e, c, iv, engine="stark-stwo", device="cuda"):
+            raise AssertionError(f"phase 11: {label} verified")
+        log(f"phase 11 rejected: {label} ({time.time() - t:.2f} s)")
+
+    # a 16 KiB TLS record: 256 blocks, log size 8 (n = 256, 2n = 512)
+    pt = rnd.bytes(16384)
+    rct = ciphers.chacha20_encrypt(key, iv, 1, pt)
+    for i in (1, 2):
+        timings = {}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.time()
+        proof = wp.prove_stream_bytes(key, iv, 1, pt, rct, device="cuda",
+                                      timings=timings)
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        rl = counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        log(f"phase 11 16 KiB record (256 blocks), proof {i}: {secs:.3f} s ("
+            + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
+            + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; peak "
+            f"device memory {peak / 2**30:.3f} GiB; proof {len(proof)} B")
+        if min(rl[k] for k in CHACHA_K7) <= 0:
+            raise AssertionError("a K7 kernel was not launched by the stwo "
+                                 "record proof")
+    with rec_record:                   # proof 3, its K7 calls kept for phase 5
+        rec_record.window = True
+        wp.prove_stream_bytes(key, iv, 1, pt, rct, device="cuda")
+        rec_record.window = False
+    t = time.time()
+    if not wv.verify_stream_proof_bytes(proof, iv, 1, pt, rct):
+        raise AssertionError("the 16 KiB record's stwo proof did not verify")
+    log(f"phase 11 16 KiB record verified by the port's verifier "
+        f"({time.time() - t:.2f} s)")
+    bad = rct[:5] + bytes([rct[5] ^ 4]) + rct[6:]
+    if wv.verify_stream_proof_bytes(proof, iv, 1, pt, bad):
+        raise AssertionError("phase 11: the record verified a flipped ciphertext")
+    t = time.time()
+    cpu = wp.prove_stream_bytes(key, iv, 1, pt, rct, device="cpu")
+    log(f"phase 11 16 KiB record on the CPU (plain versions, hashlib): "
+        f"{time.time() - t:.3f} s")
+    if cpu != proof:
+        raise AssertionError("the card's stwo record proof differs from the CPU's")
+    log(f"phase 11 card and CPU record proofs equal byte for byte "
+        f"({len(proof)} B)")
+
+    # the host tables a proof builds once (the AIR's layout) or once a log
+    # size (CircleFFT's domain and twiddles, the row maps, the commitment
+    # domain), in the first proof that needs them: rebuilt here to time them
+    from zksc_tpu_torch.stark.stwo_compat import air, cfft
+    dev = torch.device("cuda")
+    air._LAYOUT.clear()
+    for f in (wp._layout_on, cfft.fft, cfft.row_map, cfft._maps_on,
+              wp._commit_domain_on):
+        f.cache_clear()
+    t = time.time()
+    wp._layout_on(dev)
+    torch.cuda.synchronize()
+    secs = [f"AIR layout {time.time() - t:.3f} s"]
+    for ls in (4, 8):
+        t = time.time()
+        cfft._maps_on(ls, dev)
+        wp._commit_domain_on(ls, dev)
+        torch.cuda.synchronize()
+        secs.append(f"log size {ls} and {ls + 1} domains {time.time() - t:.3f} s")
+    log(f"phase 11 host tables, rebuilt to time them: {', '.join(secs)}; "
+        f"phase 11 total {time.time() - t0:.2f} s")
+    return launches
+
+
+def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None,
+                       groups=None):
     """Phase 5 for K7: the largest call of each K7 instance in one warm
     proof, replayed through the kernel (card-only and host-paced CUDA-event
     times) and its plain version (equal value for value), beside its
     bound; then every call of the proof replayed in order, summed per
-    kernel. key_size: the AES AIR's, for K7d. Returns (rows, totals)."""
+    kernel. key_size: the AES AIR's, for K7d; groups: K7c's index groups
+    (default the stark engine's chacha20 AIR). Returns (rows, totals)."""
     from zksc_tpu_torch.ops import stark_kernels
     largest = {}
     for name, args in log_calls:
@@ -1982,7 +2200,8 @@ def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None):
         kern = getattr(stark_kernels, name)
         run = lambda: kern(*args)
         ms, plain_ms, err = compare(f"{name} {variant}", run,
-                                    lambda: k7_plain(name, args, key_size),
+                                    lambda: k7_plain(name, args, key_size,
+                                                     groups),
                                     lambda r: [r])
         paced = cuda_ms(run, reps=3, paced=True)
         bound, by, work = k7_bound_ms(name, args, imad_rate)
@@ -2017,7 +2236,7 @@ def run_stark_phase5(recs, imad_rate):
     rows, per_proof = [], {}
     for path, rec in recs.items():
         r, per_proof[path] = time_stark_kernels(rec.log, imad_rate, path,
-                                                rec.key_size)
+                                                rec.key_size, rec.groups)
         rows += r
         rec.log = []
     return rows, per_proof
@@ -2034,7 +2253,9 @@ def stark_kernel_entries(rows, per_proof, launches, err):
     """The K7 entries of the kernels line: each kernel at its largest
     instance of the warm API proof of its path (K7a-c: the chacha20
     128-byte chunk, launches from phase 9; K7d: the aes-128-ctr 80-byte
-    chunk, launches from phase 10). launches: {path: counts}."""
+    chunk, launches from phase 10), with the launches of every path's warm
+    API proof beside them (phase 11's stark-stwo chunk too). launches:
+    {path: counts}."""
     entries = []
     for name in StarkRecorder.NAMES:
         mine = [r for r in rows if r["name"] == name]
@@ -2048,6 +2269,7 @@ def stark_kernel_entries(rows, per_proof, launches, err):
             "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "path": main["path"], "shape": main["variant"],
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
             "per_proof": {p: t[name] for p, t in per_proof.items() if name in t},
             "variants": mine})
     return entries
@@ -2215,10 +2437,14 @@ def main(argv) -> int:
     drive_toprf(api, "chacha20-toprf", reset_counts, counts, rec_toprf)
 
     # ---- 9. the stark engine: chacha20, a 128-byte chunk and a 16 KiB record
+    from zksc_tpu_torch.stark.stwo_compat import air as stwo_air
+    stwo_groups = stwo_air.layout()[0]
     stark_recs = {"stark chacha20 128 B": StarkRecorder(),
                   "stark chacha20 16 KiB": StarkRecorder(),
                   "stark aes-128-ctr 80 B": StarkRecorder(16),
-                  "stark aes-256-ctr 16 KiB": StarkRecorder(32)}
+                  "stark aes-256-ctr 16 KiB": StarkRecorder(32),
+                  "stark-stwo chacha20 128 B": StarkRecorder(groups=stwo_groups),
+                  "stark-stwo chacha20 16 KiB": StarkRecorder(groups=stwo_groups)}
     stark_launches = {"stark chacha20 128 B": drive_stark(
         api, reset_counts, counts, stark_recs["stark chacha20 128 B"],
         stark_recs["stark chacha20 16 KiB"])}
@@ -2228,6 +2454,13 @@ def main(argv) -> int:
     stark_launches["stark aes-128-ctr 80 B"] = drive_stark_aes(
         api, reset_counts, counts, stark_recs)
     log(f"phase 10 added {time.time() - t:.2f} s")
+
+    # ---- 11. the stark-stwo engine: chacha20, stwo's bytes
+    t = time.time()
+    stark_launches["stark-stwo chacha20 128 B"] = drive_stwo(
+        api, reset_counts, counts, stark_recs["stark-stwo chacha20 128 B"],
+        stark_recs["stark-stwo chacha20 16 KiB"])
+    log(f"phase 11 added {time.time() - t:.2f} s")
 
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")

@@ -64,6 +64,9 @@ print(" ".join(mods))
     assert len(mods) >= 27
     assert {"zksc_tpu_torch.stark.aes_air",
             "zksc_tpu_torch.stark.aes_prover"} <= set(mods)
+    assert {f"zksc_tpu_torch.stark.stwo_compat.{m}" for m in (
+        "air", "cfft", "channel", "circle", "codec", "field", "fri", "merkle",
+        "prover", "quotients", "trace", "verifier")} <= set(mods)
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -119,6 +122,22 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         StarkOperator("aes-256-ctr")
     with pytest.raises(RuntimeError, match="CUDA"):
         merkle.commit(np.zeros((4, 16), dtype=np.uint8))
+    # the stark-stwo engine's entry points
+    from zksc_tpu_torch.operators import StwoCompatOperator
+    from zksc_tpu_torch.stark.stwo_compat import prover as wp
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proof("chacha20", bytes(32), bytes(128), bytes(12),
+                           engine="stark-stwo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proofs("chacha20", [], engine="stark-stwo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.verify_proof(env, bytes(128), bytes(12), engine="stark-stwo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wp.prove_stream(bytes(32), bytes(12), 1, bytes(128), bytes(128))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wp.prove_stream_bytes(bytes(32), bytes(12), 1, bytes(128), bytes(128))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StwoCompatOperator("chacha20")
 
 
 def test_aes_composition_wrapper_refuses_cpu_tensors():

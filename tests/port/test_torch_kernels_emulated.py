@@ -444,6 +444,26 @@ def test_k7c_emulated(stark_emu):
                                                             weights, vn_inv))
 
 
+def test_k7c_emulated_stwo_layout(stark_emu):
+    """K7c on the stark-stwo AIR's index groups (54,784 constraints in 428
+    slices, an empty addx group, the carry into bit 0 read from the zero
+    row) at M = 32, the 128-byte chunk's: equal to _composition_plain."""
+    import numpy as np
+    from zksc_tpu_torch.stark.stwo_compat import air
+    groups = air.layout()[0]
+    rng = np.random.default_rng(4)
+    rand = lambda *shape: torch.from_numpy(
+        rng.integers(0, (1 << 31) - 1, shape).astype(np.int32))
+    vals, vn_inv = rand(air.N_COLS + 1, 32), rand(32)
+    vals[air.ZERO_ROW] = 0
+    weights = rand(air.N_CONSTRAINTS, 4)
+    idx, off, n = stark_kernels.pack_groups(groups)
+    got = stark_emu.composition(vals, torch.from_numpy(idx), off, n, weights,
+                                vn_inv)
+    assert torch.equal(got, stark_prover._composition_plain(vals, groups,
+                                                            weights, vn_inv))
+
+
 @pytest.mark.parametrize("key_size", [16, 32])
 def test_k7d_emulated(stark_emu, key_size):
     """K7d on the AES AIR's index groups (AES-128: 11,272 constraints in

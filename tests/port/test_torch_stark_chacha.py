@@ -6,8 +6,10 @@ package's byte for byte, and each package's verifier must accept the other's
 proof. The composition's plain version (what K7c is held to on the card)
 equals the reference's jitted _composition. The API round trip on the CPU
 rejects a tampered statement, tampered openings and a flipped ciphertext
-byte; the engines and statements not ported yet still raise (the AES
-statements under "stark": tests/port/test_torch_stark_aes.py)."""
+byte; the statements not ported yet still raise, "stark-stwo" gives its
+operator for chacha20 and raises for AES as the reference does (the AES
+statements under "stark": tests/port/test_torch_stark_aes.py; stark-stwo:
+tests/port/test_torch_stwo.py)."""
 import base64
 import copy
 import types
@@ -17,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from zksc_tpu import operators as joperators
 from zksc_tpu.interop import bincode as jbincode
 from zksc_tpu.stark import prover as jp
 from zksc_tpu_torch import api
 from zksc_tpu_torch.interop import bincode
-from zksc_tpu_torch.operators import StarkOperator, make_operator
+from zksc_tpu_torch.operators import (StarkOperator, StwoCompatOperator,
+                                      make_operator)
 from zksc_tpu_torch.ops.ciphers import chacha20_encrypt
 from zksc_tpu_torch.stark import chacha_air
 from zksc_tpu_torch.stark import prover as tp
@@ -183,12 +187,15 @@ def test_operator_and_engines_not_ported():
     for alg in ("chacha20-toprf", "aes-128-ctr-toprf"):
         with pytest.raises(ValueError, match="not ported yet"):
             make_operator(alg, "stark", device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_operator("chacha20", "stark-stwo", device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        api.generate_proof("chacha20", KEY, CT, NONCE, engine="stark-stwo",
-                           device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
+    # stark-stwo: chacha20 only, as in the reference (whose operator raises
+    # ValueError for AES too)
+    assert isinstance(make_operator("chacha20", "stark-stwo", device="cpu"),
+                      StwoCompatOperator)
+    with pytest.raises(ValueError, match="chacha20 only"):
+        make_operator("aes-128-ctr", "stark-stwo", device="cpu")
+    with pytest.raises(ValueError):
+        joperators.make_operator("aes-128-ctr", "stark-stwo")
+    with pytest.raises(ValueError, match="chacha20 only"):
         api.generate_proof("aes-128-ctr", bytes(16), CT[:80], NONCE,
                            engine="stark-stwo", device="cpu")
     op = StarkOperator("chacha20", device="cpu")

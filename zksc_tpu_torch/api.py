@@ -2,8 +2,9 @@
 
 Ported from the JAX package's ``api.py`` for the six statements (chacha20,
 aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under the Groth16
-engine, and chacha20, aes-128-ctr and aes-256-ctr under the "stark" engine
-(``engine="stark"``): chunk the ciphertext into cipher blocks, derive
+engine, chacha20, aes-128-ctr and aes-256-ctr under the "stark" engine
+(``engine="stark"``), and chacha20 under "stark-stwo" (``engine=
+"stark-stwo"``: byte-identical stwo proofs): chunk the ciphertext into cipher blocks, derive
 per-block counters from byte offsets, pad to the fixed circuit chunk size,
 decrypt locally to obtain the expected plaintext (the witness "out"),
 dispatch to the engine operator, wrap the proof envelope {algorithm,
@@ -12,8 +13,8 @@ proofData, plaintext}. A
 the verifier takes the TOPRF public signals instead.
 
 As in the reference, ``verify_proof`` defaults to ``engine="groth16"``: a
-stark envelope verifies only with ``engine="stark"`` and gives False under
-the default.
+stark or stwo envelope verifies only with its engine passed and gives False
+under the default.
 
 Every entry point takes ``device=`` and runs on the GPU ("cuda") unless the
 caller asks for the CPU; with no CUDA present and no explicit

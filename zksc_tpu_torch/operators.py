@@ -2,10 +2,11 @@
 
 Ported from the JAX package's ``operators.py``: the six statements
 (chacha20, aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under
-the "groth16" engine, and chacha20, aes-128-ctr and aes-256-ctr under the
-"stark" engine (Circle STARK over M31). The "stark-stwo" engine, the
-``-toprf`` statements under "stark" and the multi-device mesh are not
-ported yet; asking for them raises.
+the "groth16" engine, chacha20, aes-128-ctr and aes-256-ctr under the
+"stark" engine (Circle STARK over M31), and chacha20 under "stark-stwo"
+(byte-identical stwo proofs). The ``-toprf`` statements under "stark" and
+the multi-device mesh are not ported yet, and the reference runs
+"stark-stwo" for chacha20 only; asking for any of them raises.
 """
 from __future__ import annotations
 
@@ -250,16 +251,17 @@ class StarkOperator:
     def prove_batch(self, wis: list, rng=None) -> list:
         return [self.prove(wi, rng) for wi in wis]
 
-    def verify(self, public_bits: list, proof_data: dict) -> bool:
-        """public_bits: the engine-neutral signal vector from
-        api.get_public_signals (per block: counter LE bits, nonce bits,
-        ciphertext bits, plaintext bits), decoded back to byte inputs. Any
-        exception gives False."""
+    def _public_inputs(self, public_bits: list):
+        """The engine-neutral signal vector from api.get_public_signals (per
+        block: counter LE bits, nonce bits, ciphertext bits, plaintext bits)
+        decoded back to (nonce, counter0, plaintext, ciphertext); None if it
+        is not one chunk of a single nonce and sequential counters. Raises
+        ValueError on a non-bit signal."""
         cfg = CONFIG[self.algorithm]
         bs = cfg.block_size_bytes
         per_block = 32 + 96 + 8 * bs + 8 * bs
         if len(public_bits) != per_block * cfg.blocks_per_chunk:
-            return False
+            return None
 
         def bits_to_bytes(bits):
             out = bytearray(len(bits) // 8)
@@ -269,32 +271,102 @@ class StarkOperator:
                 out[i // 8] |= int(b) << (i % 8)
             return bytes(out)
 
+        nonce = counter0 = None
+        cts, pts = [], []
+        for blk in range(cfg.blocks_per_chunk):
+            off = blk * per_block
+            ctr = int.from_bytes(
+                bits_to_bytes(public_bits[off:off + 32]), "little")
+            nnc = bits_to_bytes(public_bits[off + 32:off + 128])
+            cts.append(bits_to_bytes(
+                public_bits[off + 128:off + 128 + 8 * bs]))
+            pts.append(bits_to_bytes(
+                public_bits[off + 128 + 8 * bs:off + per_block]))
+            if blk == 0:
+                nonce, counter0 = nnc, ctr
+            elif nnc != nonce or ctr != counter0 + blk:
+                return None
+        return nonce, counter0, b"".join(pts), b"".join(cts)
+
+    def verify(self, public_bits: list, proof_data: dict) -> bool:
+        """public_bits: the engine-neutral signal vector from
+        api.get_public_signals. Any exception gives False."""
         try:
-            nonce = counter0 = None
-            cts, pts = [], []
-            for blk in range(cfg.blocks_per_chunk):
-                off = blk * per_block
-                ctr = int.from_bytes(
-                    bits_to_bytes(public_bits[off:off + 32]), "little")
-                nnc = bits_to_bytes(public_bits[off + 32:off + 128])
-                cts.append(bits_to_bytes(
-                    public_bits[off + 128:off + 128 + 8 * bs]))
-                pts.append(bits_to_bytes(
-                    public_bits[off + 128 + 8 * bs:off + per_block]))
-                if blk == 0:
-                    nonce, counter0 = nnc, ctr
-                elif nnc != nonce or ctr != counter0 + blk:
-                    return False
+            inputs = self._public_inputs(public_bits)
+            if inputs is None:
+                return False
+            nonce, counter0, pt, ct = inputs
             if self.algorithm == "chacha20":
                 from .stark import prover as sp
                 proof = sp.StreamProof.from_json_dict(proof_data)
-                return sp.verify_stream(proof, nonce, counter0, b"".join(pts),
-                                        b"".join(cts), device=self.device)
+                return sp.verify_stream(proof, nonce, counter0, pt, ct,
+                                        device=self.device)
             from .stark import aes_prover as ap
             proof = ap.AesProof.from_json_dict(proof_data)
-            return ap.verify_aes_ctr(proof, nonce, counter0, b"".join(pts),
-                                     b"".join(cts), cfg.key_size_bytes,
+            return ap.verify_aes_ctr(proof, nonce, counter0, pt, ct,
+                                     CONFIG[self.algorithm].key_size_bytes,
                                      device=self.device)
+        except Exception:
+            return False
+
+
+class StwoCompatOperator(StarkOperator):
+    """Circle-STARK engine in reference-interop mode ("stark-stwo") on
+    `device` (default "cuda"): proofs byte-identical to the stwo prover's
+    for the same inputs (stark/stwo_compat/prover.py), which draws no
+    randomness. The envelope has the reference's keys {success, blocks,
+    algorithm, protocol: "stwo", proof (base64 bincode), proof_size_bytes}.
+    chacha20 only, as in the reference."""
+
+    ALGORITHMS = ("chacha20",)
+
+    def __init__(self, algorithm: str, device=None):
+        if algorithm not in self.ALGORITHMS:
+            raise ValueError(f"the stark-stwo engine proves chacha20 only, "
+                             f"not {algorithm!r}")
+        super().__init__(algorithm, device=device)
+
+    def prove(self, wi: ZKProofInput, rng=None) -> dict:
+        import base64
+        from .stark.stwo_compat.prover import prove_stream_bytes
+        if rng is not None:
+            raise ValueError("the stark-stwo engine takes no rng: its proofs "
+                             "are a function of the inputs")
+        nonce, counter0 = self._check_blocks(wi.blocks)
+        timings = {}
+        raw = prove_stream_bytes(wi.key, nonce, counter0, wi.plaintext,
+                                 wi.ciphertext, device=self.device,
+                                 timings=timings)
+        self.timings = timings
+        return {"success": True,
+                "blocks": len(wi.plaintext) // 64,
+                "algorithm": "chacha20",
+                "protocol": "stwo",
+                "proof": base64.b64encode(raw).decode(),
+                "proof_size_bytes": len(raw)}
+
+    @staticmethod
+    def proof_bytes(proof_data: dict) -> bytes:
+        """The bincode bytes of an envelope; ValueError if its base64 text
+        passes the reference's 8 MB cap (wasm_api.rs:617), before decoding."""
+        import base64
+        from .interop.bincode import _MAX_PROOF_BYTES
+        b64 = proof_data["proof"]
+        if len(b64) > _MAX_PROOF_BYTES:
+            raise ValueError("proof exceeds the 8 MB cap")
+        return base64.b64decode(b64)
+
+    def verify(self, public_bits: list, proof_data: dict) -> bool:
+        """Verify on the host (stark/stwo_compat/verifier.py) against the
+        statement decoded from public_bits. Any exception gives False."""
+        from .stark.stwo_compat.verifier import verify_stream_proof_bytes
+        try:
+            inputs = self._public_inputs(public_bits)
+            if inputs is None:
+                return False
+            nonce, counter0, pt, ct = inputs
+            return verify_stream_proof_bytes(self.proof_bytes(proof_data),
+                                             nonce, counter0, pt, ct)
         except Exception:
             return False
 
@@ -304,5 +376,7 @@ def make_operator(algorithm: str, engine: str, device=None):
         return Groth16Operator(algorithm, device=device)
     if engine == "stark":
         return StarkOperator(algorithm, device=device)
-    raise ValueError(f"engine {engine!r} is not ported yet (available: "
-                     "groth16, stark)")
+    if engine == "stark-stwo":
+        return StwoCompatOperator(algorithm, device=device)
+    raise ValueError(f"unknown engine {engine!r} (available: groth16, stark, "
+                     "stark-stwo)")

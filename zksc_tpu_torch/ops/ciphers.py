@@ -1,15 +1,19 @@
-"""ChaCha20 and AES-128/256-CTR on the host (numpy), for the API's local
-decrypt and the AES circuit's tables.
+"""ChaCha20 and AES-128/256-CTR: numpy on the host for the API's local
+decrypt and the AES circuit's tables, and the ChaCha20 block function as
+torch ops over a block axis.
 
 The numpy twins of the JAX package's ``ops/ciphers.py`` (RFC 7539 ChaCha20,
 FIPS 197 AES with its S-box, round constants, GF(2^8) inverse table and key
 schedule, CTR mode: IV = 12-byte nonce || 4-byte big-endian counter). The
 prover needs the plaintext of one chunk (128 or 80 bytes), which is tiny
-host work; the device-batched ciphers are not ported.
+host work. ``chacha20_block_words`` and ``chacha20_keystream`` are the
+reference's batched ChaCha20 (ops/ciphers.py:55, :98) on tensors of any
+device. The device-batched AES ciphers are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 CHACHA_CONSTS = np.array([0x61707865, 0x3320646E, 0x79622D32, 0x6B206574],
                          dtype=np.uint32)
@@ -43,6 +47,50 @@ def _chacha20_block_np(key_words: np.ndarray, nonce_words: np.ndarray,
                     xs[ia], xs[ib], xs[ic], xs[id_] = a, b, c, d
         out = [(x + state0[:, i]).astype(np.uint32) for i, x in enumerate(xs)]
     return np.stack(out, axis=1)
+
+
+MASK32 = 0xFFFFFFFF
+
+
+def _rotl_t(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x << n) | (x >> (32 - n))) & MASK32
+
+
+def chacha20_block_words(key_words: torch.Tensor, nonce_words: torch.Tensor,
+                         counter: torch.Tensor) -> torch.Tensor:
+    """One ChaCha20 block per batch lane, as torch ops on the inputs'
+    device: key_words [B, 8] (LE words), nonce_words [B, 3], counter [B],
+    integer tensors holding u32 values. Returns the keystream words as int64
+    [B, 16] in [0, 2^32)."""
+    B = key_words.shape[0]
+    dev = key_words.device
+    consts = torch.as_tensor(CHACHA_CONSTS.astype(np.int64), device=dev)
+    state0 = torch.cat([consts.expand(B, 4), key_words.to(torch.int64),
+                        counter.to(torch.int64)[:, None],
+                        nonce_words.to(torch.int64)], dim=1) & MASK32
+    xs = list(state0.unbind(1))
+    for _ in range(10):
+        for pattern in (_QR_COLS, _QR_DIAG):
+            for (ia, ib, ic, id_) in pattern:
+                a, b, c, d = xs[ia], xs[ib], xs[ic], xs[id_]
+                a = (a + b) & MASK32; d = _rotl_t(d ^ a, 16)
+                c = (c + d) & MASK32; b = _rotl_t(b ^ c, 12)
+                a = (a + b) & MASK32; d = _rotl_t(d ^ a, 8)
+                c = (c + d) & MASK32; b = _rotl_t(b ^ c, 7)
+                xs[ia], xs[ib], xs[ic], xs[id_] = a, b, c, d
+    return (torch.stack(xs, dim=1) + state0) & MASK32
+
+
+def chacha20_keystream(key_bytes: torch.Tensor, nonce_bytes: torch.Tensor,
+                       counters: torch.Tensor) -> torch.Tensor:
+    """Batched keystream: key uint8 [B, 32], nonce uint8 [B, 12], counters
+    [B] -> keystream bytes uint8 [B, 64]."""
+    def words(b):
+        b = b.to(torch.int64).reshape(b.shape[0], -1, 4)
+        return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+    ks = chacha20_block_words(words(key_bytes), words(nonce_bytes), counters)
+    return torch.stack([(ks >> (8 * i)) & 0xFF for i in range(4)],
+                       dim=-1).reshape(ks.shape[0], 64).to(torch.uint8)
 
 
 def chacha20_encrypt(key: bytes, nonce: bytes, counter: int, data: bytes) -> bytes:
