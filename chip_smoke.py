@@ -130,6 +130,23 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      (plain versions, hashlib): equal to the card's byte for byte; the
      host tables a first proof builds (the AIR's layout, each log size's
      domains and row maps) rebuilt and timed.
+ 12. the interop layer at full width: phase 4's warm chacha20 proof and
+     the committed key through gnark's binary proof and verifying key and
+     the snarkjs vkey JSON and back (the proof verifies under both
+     imported vks, a flipped ciphertext byte is rejected under both), its
+     witness as a .wtns read back equal; the key's .zkey (seconds per
+     section, size, peak device memory), read back (the B2 query's
+     subgroup check as one K3 ladder on the card) equal to the key's
+     host-affine points and A/B rows, a B2 point outside the subgroup
+     rejected; a gnark v0.14 .r1cs written here (gnark_toy_r1cs: a packed
+     intcomp block, an nBits hint) parsed, solved, set up, proved and
+     verified on the card, a tampered public input rejected (K1/K2/K3
+     launches printed, K2 and K3 > 0); the AES-256 CTR keystream of a 16
+     KiB record (1,024 blocks) made on the card equal to the host's; Fr
+     inv, mont_pow and mont_sqr over 2^16 elements equal to Python ints;
+     trace_span around one warm chacha20 proof with ZKSC_TRACE_DIR under
+     chiprun_out/: the trace's size and CUDA kernel events (the file is
+     removed after reading when over 16 MiB).
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
      6, 7, 8, 9, 10 and 11): the first of the largest inputs each kernel
      variant got in
@@ -2180,6 +2197,405 @@ def drive_stwo(api, reset_counts, counts, rec_api, rec_record) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 12: interop
+
+INTEROP_SEED = 20244      # seed of phase 12's inputs
+
+
+class _Cbor:
+    """A CBOR tag for the toy .r1cs trailer."""
+
+    def __init__(self, tag: int, value):
+        self.tag, self.value = tag, value
+
+
+def _cbor(o) -> bytes:
+    def head(major, n):
+        if n < 24:
+            return bytes([major << 5 | n])
+        for ai, size in ((24, 1), (25, 2), (26, 4), (27, 8)):
+            if n < 1 << (8 * size):
+                return bytes([major << 5 | ai]) + n.to_bytes(size, "big")
+        raise ValueError("CBOR head too large")
+    if o is None or isinstance(o, bool):
+        return {False: b"\xf4", True: b"\xf5", None: b"\xf6"}[o]
+    if isinstance(o, _Cbor):
+        return head(6, o.tag) + _cbor(o.value)
+    if isinstance(o, int):
+        return head(0, o) if o >= 0 else head(1, -1 - o)
+    if isinstance(o, str):
+        return head(3, len(o.encode())) + o.encode()
+    if isinstance(o, list):
+        return head(4, len(o)) + b"".join(_cbor(v) for v in o)
+    return head(5, len(o)) + b"".join(_cbor(k) + _cbor(v) for k, v in o.items())
+
+
+def _leb128(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _intcomp(values, word_bits: int) -> bytes:
+    """An intcomp stream (u64 word count, then the words): bit-packed
+    blocks of 4 x word_bits deltas (zigzag where a group has a negative
+    one), then the varint tail; a bare tail without a full block."""
+    import numpy as np
+    vals = [int(v) for v in values]
+    lanes, wmask = word_bits, (1 << word_bits) - 1
+    n_packed = len(vals) // (4 * lanes) * (4 * lanes)
+    blocks = []
+    for b0 in range(0, n_packed, 4 * lanes):
+        hdr, payload = 0, []
+        for g in range(4):
+            lo = b0 + g * lanes
+            d = [vals[i] - (vals[i - 1] if i else vals[0])
+                 for i in range(lo, lo + lanes)]
+            zz = any(x < 0 for x in d)
+            if zz:
+                d = [2 * x if x >= 0 else -2 * x - 1 for x in d]
+            width = max(d).bit_length()
+            hdr |= ((0x80 if zz else 0) | width) << (8 * (3 - g))
+            acc = sum(x << (j * width) for j, x in enumerate(d))
+            payload += [(acc >> (k * word_bits)) & wmask for k in range(width)]
+        blocks += [hdr] + payload
+    rem = vals[n_packed:]
+    raw = b"".join(_leb128(d) for d in (
+        [rem[0]] + [(rem[i] - rem[i - 1]) & wmask for i in range(1, len(rem))]
+        if rem else []))
+    nb = word_bits // 8
+    raw += bytes(-len(raw) % nb)
+    data = [int.from_bytes(raw[i:i + nb], "big") for i in range(0, len(raw), nb)]
+    if word_bits == 32:
+        tail = [len(rem), 2 + len(data)] + data + [2 + len(data)]
+    else:
+        tail = [len(rem) | (1 + len(data)) << 32] + data + [1 + len(data)]
+    if n_packed:
+        head = [n_packed, 0, vals[0]] if word_bits == 32 else [n_packed, vals[0]]
+        off = len(head) + len(blocks)
+        if word_bits == 32:
+            head[1] = off
+        else:
+            head[0] |= off << 32
+        words = head + blocks + (tail if rem else [off])
+    else:
+        words = tail
+    dt = "<u4" if word_bits == 32 else "<u8"
+    return len(words).to_bytes(8, "little") + np.asarray(
+        words, dtype=np.uint64).astype(dt).tobytes()
+
+
+def gnark_toy_r1cs(R: int, hint_nbits: int, tag_r1c: int, tag_hint: int,
+                   n_chain: int = 6, n_checks: int = 110):
+    """A gnark v0.14 .r1cs (the layout of interop/gnark_r1cs.py) of
+    Y = X^(n_chain+1) + 5 for an 8-bit secret X: an nBits hint splits X
+    into bits (booleanity and recomposition constrained), a chain of
+    products, unknowns solved in the L and the R slot, a final check with a
+    -1 coefficient and n_checks booleanity re-checks, so that the 129
+    instructions' u32 columns hold a packed block. The writer of
+    tests/port/test_torch_gnark_r1cs.py. Returns (bytes, x -> (public,
+    secret))."""
+    import numpy as np
+    X, Y, B0 = 2, 1, 3
+    t = lambda j: 10 + j
+    u, v = 11 + n_chain, 12 + n_chain
+    coeffs = [0, 1, 2, 4, 8, 16, 32, 64, 128, 5, R - 1]
+    c1, c5, cm1 = 1, 9, 10
+    recs, kinds = [[8, hint_nbits, 1, 1, c1, X, B0, B0 + 8]], [1]
+
+    def r1c(L, Rt, O):
+        body = [len(L), len(Rt), len(O)] + [x for lc in (L, Rt, O)
+                                             for term in lc for x in term]
+        recs.append([1 + len(body)] + body)
+        kinds.append(0)
+    for k in range(8):
+        r1c([(c1, B0 + k)], [(c1, B0 + k)], [(c1, B0 + k)])
+    r1c([(1 + k, B0 + k) for k in range(8)], [(c1, 0)], [(c1, X)])
+    r1c([(c1, X)], [(c1, X)], [(c1, t(1))])
+    for j in range(2, n_chain + 1):
+        r1c([(c1, t(j - 1))], [(c1, X)], [(c1, t(j))])
+    r1c([(c1, u)], [(c1, X)], [(c1, t(1))])
+    r1c([(c1, X)], [(c1, v)], [(c1, t(2))])
+    r1c([(c1, t(n_chain)), (c5, 0), (cm1, u), (c1, X)], [(c1, 0)], [(c1, Y)])
+    for k in range(n_checks):
+        r1c([(2, B0 + k % 8)], [(c1, B0 + k % 8)], [(2, B0 + k % 8)])
+    n = len(recs)
+    calldata = [x for rec in recs for x in rec]
+    levels = [[0], list(range(1, 10)), list(range(10, n))]
+    s1 = len(levels).to_bytes(8, "little") + b"".join(
+        _intcomp(lv, 32) for lv in levels)
+    s2 = (_intcomp(kinds, 32)
+          + _intcomp(np.cumsum([0] + [1 - k for k in kinds[:-1]]).tolist(), 32)
+          + _intcomp(np.cumsum([0, 8] + [1] * (n - 2)).tolist(), 32)
+          + _intcomp(np.cumsum([0] + [len(r) for r in recs[:-1]]).tolist(), 64))
+    s3 = len(calldata).to_bytes(8, "little") + b"".join(
+        _leb128(x) for x in calldata)
+    s4 = _cbor({"GnarkVersion": "0.14.0", "ScalarField": format(R, "x"),
+                "NbConstraints": n - 1, "NbInternalVariables": 8 + n_chain + 2,
+                "Public": ["1", "Y"], "Secret": ["X"],
+                "Blueprints": [_Cbor(tag_r1c, {}), _Cbor(tag_hint, {})],
+                "MHintsDependencies": {hint_nbits: "std/math/bits.nBits"}})
+    mont = (1 << 256) % R
+    table = len(coeffs).to_bytes(8, "little") + b"".join(
+        (c * mont % R).to_bytes(32, "little") for c in coeffs)
+    body = (b"".join(x.to_bytes(8, "little") for x in (0, 14, 0))
+            + b"".join(len(s).to_bytes(8, "little") for s in (s1, s2, s3, s4))
+            + s1 + s2 + s3 + s4 + table)
+    data = (len(body) + 8 - 32).to_bytes(8, "little") + body
+    return data, lambda x: ({"Y": (pow(x, n_chain + 1, R) + 5) % R}, {"X": x})
+
+
+def drive_interop(api, key, ct, iv, env, rng, reset_counts, counts) -> dict:
+    """Phase 12: the interop layer at full width on the card. (a) phase 4's
+    warm chacha20 proof and the committed key through the gnark proof / vk
+    codecs and the snarkjs vkey JSON and .wtns; (b) the key's .zkey;
+    (c) an imported gnark .r1cs set up, proved and verified on the card;
+    (d) the AES-256 keystream of a 16 KiB record on the card; (e) LimbField
+    inv / mont_pow / mont_sqr over 2^16 Fr elements; (f) trace_span around
+    one warm proof. Returns the launches of (c)."""
+    import random
+    import struct
+
+    import numpy as np
+    import torch
+
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.fields.limb import Fp, Fr
+    from zksc_tpu_torch.groth16 import ProverContext, setup, verify
+    from zksc_tpu_torch.groth16.prove import Proof
+    from zksc_tpu_torch.interop import gnark, gnark_r1cs, snarkjs
+    from zksc_tpu_torch.ops import ec
+    from zksc_tpu_torch.ops.ciphers import aes_ctr_encrypt, aes_ctr_keystream
+    from zksc_tpu_torch.ops.ntt import bit_reverse_perm
+    from zksc_tpu_torch.utils.logging import Logger, trace_span
+    t0 = time.time()
+    op = api.get_operator("chacha20", "groth16", "cuda")
+    pk, vk, cs = op._ctx.pk, op.ensure_vk(), op.spec.cs
+
+    # (a) the card's proof through gnark's and snarkjs' formats
+    proof = Proof.from_json_dict(env.proof_data)
+    pub = api.get_public_signals("chacha20", ct, iv, env.plaintext)
+    bad = api.get_public_signals("chacha20", bytes([ct[0] ^ 1]) + ct[1:], iv,
+                                 env.plaintext)
+    t = time.time()
+    proof_bin = gnark.write_proof(proof)
+    proof2 = gnark.parse_proof(proof_bin)
+    vk_bin = gnark.write_vk(gnark.zksc_to_gnark_vk(vk, pk))
+    vk_g = gnark.vk_to_zksc(gnark.parse_vk(vk_bin))
+    codec_s = time.time() - t
+    if (proof2.a, proof2.b, proof2.c) != (proof.a, proof.b, proof.c):
+        raise AssertionError("phase 12: gnark proof round trip differs")
+    t = time.time()
+    vkey_text = json.dumps(snarkjs.vkey_to_json(vk))
+    vk_s = snarkjs.vkey_from_json(json.loads(vkey_text))
+    json_s = time.time() - t
+    for label, k in (("gnark", vk_g), ("snarkjs", vk_s)):
+        t = time.time()
+        if not verify(k, proof2, pub):
+            raise AssertionError(f"phase 12: the {label}-imported vk rejected "
+                                 "the card's proof")
+        if verify(k, proof2, bad):
+            raise AssertionError(f"phase 12: the {label}-imported vk accepted "
+                                 "a flipped ciphertext byte")
+        log(f"phase 12 {label}-imported vk: proof verifies, flipped "
+            f"ciphertext byte rejected ({time.time() - t:.2f} s)")
+    t = time.time()
+    wit = op.spec.build_witness(api.generate_zk_witness("chacha20", key, ct, iv))
+    wtns = snarkjs.write_wtns(wit)
+    if snarkjs.read_wtns(wtns) != [int(w) % host.R for w in wit]:
+        raise AssertionError("phase 12: .wtns round trip differs")
+    log(f"phase 12 codecs: gnark proof {len(proof_bin)} B, gnark vk "
+        f"{len(vk_bin)} B (write+parse of both {codec_s:.3f} s), snarkjs "
+        f"vkey JSON {len(vkey_text)} B ({json_s:.3f} s), .wtns of "
+        f"{len(wit)} wires {len(wtns)} B (witness, write, read "
+        f"{time.time() - t:.3f} s)")
+
+    # (b) the key's .zkey, read back against the key's own points
+    class Sections(Logger):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def log(self, level, msg, **fields):
+            self.rows.append(fields)
+
+    secs = Sections()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()      # held by phases 4-11
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    zkey = snarkjs.write_zkey(cs, pk, vk, logger=secs)
+    write_s = time.time() - t
+    t = time.time()
+    z = snarkjs.read_zkey(zkey, device="cuda")
+    read_s = time.time() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.time()
+    n = cs.n_wires
+    head = lambda q, k: ec.JacPoint(*(c[:, :k] for c in q))
+    g1 = lambda q, k: ec.g1_jac_to_host_affine(Fp, head(q, k), host.P)
+    h_br = g1(pk.h_query, pk.domain_n)
+    br = bit_reverse_perm(pk.domain_n)
+    h_nat = [None] * pk.domain_n
+    for i in range(pk.domain_n):
+        h_nat[int(br[i])] = h_br[i]
+    want = {"a_query": g1(pk.a_query, n), "b_g1_query": g1(pk.b_g1_query, n),
+            "b_g2_query": ec.g2_jac_to_host_affine(
+                Fp, pk.b_g2_query, host.P)[:n],
+            "c_query": g1(pk.c_query, n - cs.n_public - 1), "h_query": h_nat,
+            "ic": vk.ic,
+            "coeffs": [(m, k, w, c % host.R)
+                       for k, (la, lb, _) in enumerate(cs.constraints)
+                       for m, lc in ((0, la), (1, lb)) for w, c in lc.items()]}
+    for name, pts in want.items():
+        if z[name] != pts:
+            raise AssertionError(f"phase 12: the zkey's {name} differs from "
+                                 "the key")
+    if (z["n_vars"], z["domain_size"], z["delta_g2"]) != (
+            n, pk.domain_n, pk.delta_g2):
+        raise AssertionError("phase 12: the zkey header differs from the key")
+    # a B2 point on the twist outside the r-torsion: the order check on the
+    # card must reject it
+    b2c = gnark._b2()
+    for x0 in range(1, 50):
+        x = (x0, 0)
+        x3 = gnark._fp2_mul(gnark._fp2_mul(x, x), x)
+        y = gnark._fp2_sqrt(((x3[0] + b2c[0]) % host.P,
+                             (x3[1] + b2c[1]) % host.P))
+        if y is not None and not host.g2_in_subgroup((x, y)):
+            break
+    off = 12                                  # the B2 section (type 7)
+    while struct.unpack_from("<I", zkey, off)[0] != 7:
+        off += 12 + struct.unpack_from("<Q", zkey, off + 4)[0]
+    off += 12 + 128 * 7
+    bad_b2 = zkey[:off] + snarkjs._g2_bytes((x, y)) + zkey[off + 128:]
+    try:
+        snarkjs.read_zkey(bad_b2, device="cuda")
+        raise AssertionError("phase 12: a B2 point outside the subgroup was "
+                             "read")
+    except snarkjs.SnarkjsFormatError:
+        pass
+    log(f"phase 12 zkey of the chacha20 key: {len(zkey)} B, write_zkey "
+        f"{write_s:.2f} s (" + ", ".join(
+            f"{r['section']} {r['seconds']:.2f} s" for r in secs.rows)
+        + f"), read_zkey {read_s:.2f} s (B2 order check on the card), equal "
+        f"to the key's host-affine points and A/B rows ({time.time() - t:.2f}"
+        f" s); a B2 point outside the subgroup rejected; peak device memory "
+        f"{peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before write_zkey")
+
+    # (c) an imported gnark circuit, proved on the card
+    t = time.time()
+    data, assign = gnark_toy_r1cs(host.R, gnark_r1cs.HINT_NBITS,
+                                  gnark_r1cs.TAG_GENERIC_R1C,
+                                  gnark_r1cs.TAG_GENERIC_HINT)
+    g = gnark_r1cs.parse_r1cs(data)
+    pub_in, sec_in = assign(201)
+    w = g.solve_witness(pub_in, sec_in)
+    if not g.check_witness(w):
+        raise AssertionError("phase 12: the solved gnark witness fails")
+    gcs = g.to_constraint_system()
+    parse_s = time.time() - t
+    srng = random.Random(INTEROP_SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    gpk, gvk = setup(gcs, rng=lambda: srng.randrange(2, host.R), device="cuda")
+    setup_s = time.time() - t
+    t = time.time()
+    ctx = ProverContext(gcs, pk=gpk, device="cuda")
+    gproof = ctx.prove(np.asarray(w, dtype=object),
+                       rng=lambda: srng.randrange(1, host.R))
+    torch.cuda.synchronize()
+    prove_s = time.time() - t
+    launches = counts()
+    t = time.time()
+    if not verify(gvk, gproof, [pub_in["Y"]]):
+        raise AssertionError("phase 12: the imported circuit's proof failed")
+    if verify(gvk, gproof, [(pub_in["Y"] + 1) % host.R]):
+        raise AssertionError("phase 12: a tampered public input verified")
+    log(f"phase 12 imported gnark .r1cs ({len(data)} B, {g.n_instructions} "
+        f"instructions, {gcs.n_constraints} constraints, {gcs.n_wires} wires): "
+        f"parse+solve {parse_s:.3f} s, setup {setup_s:.3f} s, prove "
+        f"{prove_s:.3f} s (m_pad {ctx.m_pad}), verify + tampered input "
+        f"rejected {time.time() - t:.2f} s; launches K1 "
+        f"{launches['chunk_scan']}, K2 {launches['jac_add_n']}, K3 "
+        f"{launches['ladder']}")
+    for k in ("jac_add_n", "ladder"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 12: {k} was not launched for the "
+                                 "imported circuit")
+
+    # (d) the AES-256 keystream of a 16 KiB record, on the card
+    rnd = random.Random(INTEROP_SEED)
+    akey = bytes(rnd.randrange(256) for _ in range(32))
+    nonce = bytes(rnd.randrange(256) for _ in range(12))
+    ctr0 = 2
+    nonces = torch.tensor(list(nonce), dtype=torch.uint8,
+                          device="cuda").expand(1024, 12)
+    ctrs = torch.arange(ctr0, ctr0 + 1024, device="cuda")
+    aes_ctr_keystream(akey, nonces, ctrs)                   # warm
+    torch.cuda.synchronize()
+    t = time.time()
+    ks = aes_ctr_keystream(akey, nonces, ctrs)
+    torch.cuda.synchronize()
+    ks_s = time.time() - t
+    if ks.cpu().numpy().tobytes() != aes_ctr_encrypt(akey, nonce, ctr0,
+                                                     bytes(16384)):
+        raise AssertionError("phase 12: the card's AES-256 keystream differs")
+    log(f"phase 12 AES-256 keystream, 1,024 blocks on the card: {ks_s * 1e3:.2f}"
+        " ms (warm), equal to the host's byte for byte")
+
+    # (e) LimbField inv / mont_pow / mont_sqr over the chacha20 domain
+    vals = [0, 1, host.R - 1] + [rnd.randrange(host.R) for _ in range(2**16 - 3)]
+    e = rnd.randrange(1 << 64)
+    a = Fr.to_device(vals, device="cuda")
+    out = {}
+    for name, fn, ref in (
+            ("inv", Fr.inv, lambda v: pow(v, host.R - 2, host.R)),
+            (f"mont_pow(e={e})", lambda x: Fr.mont_pow(x, e),
+             lambda v: pow(v, e, host.R)),
+            ("mont_sqr", Fr.mont_sqr, lambda v: v * v % host.R)):
+        torch.cuda.synchronize()
+        t = time.time()
+        r = fn(a)
+        torch.cuda.synchronize()
+        out[name] = time.time() - t
+        if Fr.from_device(r) != [ref(v) for v in vals]:
+            raise AssertionError(f"phase 12: Fr.{name} differs from Python ints")
+    log("phase 12 LimbField over 2^16 Fr elements on the card, equal to "
+        "Python ints: " + ", ".join(f"{k} {v:.3f} s" for k, v in out.items()))
+
+    # (f) trace_span around one warm proof
+    trace_dir = os.path.join(HERE, "chiprun_out", "phase12_trace")
+    os.environ["ZKSC_TRACE_DIR"] = trace_dir
+    try:
+        t = time.time()
+        with trace_span("phase12_prove"):
+            env2 = api.generate_proof("chacha20", key, ct, iv, device="cuda",
+                                      rng=rng)
+    finally:
+        del os.environ["ZKSC_TRACE_DIR"]
+    path = os.path.join(trace_dir, "phase12_prove.json")
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    n_kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    if not api.verify_proof(env2, ct, iv, device="cuda") or n_kernels == 0:
+        raise AssertionError("phase 12: the traced proof failed or the trace "
+                             "holds no CUDA kernel")
+    if size > 16 << 20:                       # keep the output directory small
+        os.remove(path)
+    log(f"phase 12 trace_span: {path} {size} B, {n_kernels} CUDA kernel "
+        f"events, {len(events)} events ({time.time() - t:.2f} s with the "
+        f"proof and the export){' (removed after reading)' if size > 16 << 20 else ''}")
+    log(f"phase 12 total {time.time() - t0:.2f} s")
+    return launches
+
+
 def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None,
                        groups=None):
     """Phase 5 for K7: the largest call of each K7 instance in one warm
@@ -2461,6 +2877,12 @@ def main(argv) -> int:
         api, reset_counts, counts, stark_recs["stark-stwo chacha20 128 B"],
         stark_recs["stark-stwo chacha20 16 KiB"])
     log(f"phase 11 added {time.time() - t:.2f} s")
+
+    # ---- 12. the interop layer: gnark / snarkjs codecs, .zkey, an imported
+    # gnark circuit, the device AES keystream, LimbField, tracing
+    t = time.time()
+    drive_interop(api, key, ct, iv, env, rng, reset_counts, counts)
+    log(f"phase 12 added {time.time() - t:.2f} s")
 
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")

@@ -20,6 +20,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "examples", "toprf_threshold_service_torch.py")
+    yield os.path.join(ROOT, "tools", "artifacts_cli_torch.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -67,6 +69,10 @@ print(" ".join(mods))
     assert {f"zksc_tpu_torch.stark.stwo_compat.{m}" for m in (
         "air", "cfft", "channel", "circle", "codec", "field", "fri", "merkle",
         "prover", "quotients", "trace", "verifier")} <= set(mods)
+    assert {f"zksc_tpu_torch.{m}" for m in (
+        "file_fetch", "utils.logging", "interop.cbor", "interop.intcomp",
+        "interop.gnark_r1cs", "interop.gnark", "interop.snarkjs",
+        "interop.circom_wasm", "interop.stwo_wasm")} <= set(mods)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -165,6 +165,9 @@ class LimbField:
     def neg(self, a):
         return self.sub(torch.zeros_like(a), a)
 
+    def double(self, a):
+        return self.add(a, a)
+
     def _mont_reduce(self, T: torch.Tensor) -> torch.Tensor:
         """Montgomery-reduce lazy int64 limbs T [>= 2L, *batch] (value < pR,
         limbs < 2^40) in place: returns T * R^-1 mod p as int32 [L, *batch]."""
@@ -191,6 +194,9 @@ class LimbField:
             T[i:i + L].addcmul_(a[i].unsqueeze(0), b)
         return self._mont_reduce(T)
 
+    def mont_sqr(self, a):
+        return self.mont_mul(a, a)
+
     def mont_reduce_wide(self, t_limbs: list):
         """Montgomery-reduce a wide value T (list of >= L limbs, each
         < 2^16): returns T * R^-1 mod p as (L, *batch). Requires T < p*R."""
@@ -211,12 +217,43 @@ class LimbField:
         out, _ = _propagate(T)
         return [out[j].to(torch.int32) for j in range(out.shape[0])]
 
+    def mul_const(self, a, k: int):
+        """a * k mod p for a host-known int k; a in Montgomery form, result
+        too."""
+        return self.mont_mul(a, self.broadcast_const(k, a.shape[1:],
+                                                     device=a.device))
+
+    def mont_pow(self, a, e: int):
+        """a^e (Montgomery in, Montgomery out) for a host-known exponent e:
+        MSB-first square and multiply from one, as the reference's
+        fori_loop; a zero bit skips its multiply, which leaves the same
+        canonical limbs (0^0 = 1)."""
+        nbits = max(e.bit_length(), 1)
+        res = self.broadcast_const(1, a.shape[1:], device=a.device)
+        for i in range(nbits):
+            res = self.mont_mul(res, res)
+            if (e >> (nbits - 1 - i)) & 1:
+                res = self.mont_mul(res, a)
+        return res
+
+    def inv(self, a):
+        """Batched modular inverse via Fermat (a^(p-2)); Montgomery in/out.
+        0 -> 0."""
+        return self.mont_pow(a, self.p - 2)
+
+    def eq(self, a, b):
+        return (a == b).all(0)
+
     def is_zero(self, a):
         return (a == 0).all(0)
 
     def select(self, cond, a, b):
         """where(cond, a, b) broadcasting cond over the limb axis."""
         return torch.where(cond.unsqueeze(0), a, b)
+
+    @functools.cached_property
+    def one_limbs(self) -> np.ndarray:
+        return int_to_limbs(self.R_int, self.L)           # 1 in Montgomery form
 
     @functools.cached_property
     def r2_limbs(self) -> np.ndarray:

@@ -1,14 +1,15 @@
 """ChaCha20 and AES-128/256-CTR: numpy on the host for the API's local
-decrypt and the AES circuit's tables, and the ChaCha20 block function as
-torch ops over a block axis.
+decrypt and the AES circuit's tables, and both ciphers as torch ops over a
+block axis.
 
 The numpy twins of the JAX package's ``ops/ciphers.py`` (RFC 7539 ChaCha20,
 FIPS 197 AES with its S-box, round constants, GF(2^8) inverse table and key
 schedule, CTR mode: IV = 12-byte nonce || 4-byte big-endian counter). The
 prover needs the plaintext of one chunk (128 or 80 bytes), which is tiny
-host work. ``chacha20_block_words`` and ``chacha20_keystream`` are the
-reference's batched ChaCha20 (ops/ciphers.py:55, :98) on tensors of any
-device. The device-batched AES ciphers are not ported.
+host work. ``chacha20_block_words`` / ``chacha20_keystream`` and
+``aes_encrypt_blocks`` / ``aes_ctr_counter_blocks`` / ``aes_ctr_keystream``
+are the reference's batched ciphers (ops/ciphers.py:55, :98, :239, :277,
+:285) on tensors of any device: the tensors' own.
 """
 from __future__ import annotations
 
@@ -190,6 +191,63 @@ def aes_expand_key(key: np.ndarray) -> np.ndarray:
             temp = AES_SBOX[temp]
         words.append(words[i - nk] ^ temp)
     return np.stack(words).reshape(rounds + 1, 16)
+
+
+_SHIFT_ROWS = [0, 5, 10, 15, 4, 9, 14, 3, 8, 13, 2, 7, 12, 1, 6, 11]
+
+
+def _xtime_t(x: torch.Tensor) -> torch.Tensor:
+    """GF(2^8) multiply by 2 of byte values held in an integer tensor."""
+    return ((x << 1) ^ torch.where((x & 0x80) != 0, 0x1B, 0)) & 0xFF
+
+
+def aes_encrypt_blocks(blocks: torch.Tensor, round_keys) -> torch.Tensor:
+    """Batched AES block encryption on the blocks' device.
+
+    blocks: uint8 [B, 16] (column-major AES state = standard byte order);
+    round_keys: uint8 [R+1, 16] or [B, R+1, 16] (per-lane keys), a tensor or
+    a numpy array (``aes_expand_key``'s output). Returns uint8 [B, 16]."""
+    dev = blocks.device
+    sbox = torch.as_tensor(AES_SBOX.astype(np.int64), device=dev)
+    shift = torch.tensor(_SHIFT_ROWS, device=dev)
+    st = blocks.to(torch.int64)
+    rk = torch.as_tensor(round_keys, device=dev).to(torch.int64)
+    if rk.dim() == 2:
+        rk = rk.unsqueeze(0)
+    n_rounds = rk.shape[1] - 1
+    st = st ^ rk[:, 0]
+    for r in range(1, n_rounds + 1):
+        st = sbox.index_select(0, st.reshape(-1)).reshape(st.shape)  # SubBytes
+        st = st.index_select(1, shift)                               # ShiftRows
+        if r != n_rounds:                                            # MixColumns
+            cols = st.reshape(-1, 4, 4)
+            a0, a1, a2, a3 = cols.unbind(2)
+            x0, x1, x2, x3 = (_xtime_t(a) for a in (a0, a1, a2, a3))
+            st = torch.stack([x0 ^ x1 ^ a1 ^ a2 ^ a3,
+                              a0 ^ x1 ^ x2 ^ a2 ^ a3,
+                              a0 ^ a1 ^ x2 ^ x3 ^ a3,
+                              x0 ^ a0 ^ a1 ^ a2 ^ x3], dim=2).reshape(-1, 16)
+        st = st ^ rk[:, r]
+    return st.to(torch.uint8)
+
+
+def aes_ctr_counter_blocks(nonce_bytes: torch.Tensor,
+                           counters: torch.Tensor) -> torch.Tensor:
+    """IV blocks: nonce uint8 [B, 12] || BE32(counter) -> uint8 [B, 16]."""
+    c = counters.to(torch.int64)
+    ctr_be = torch.stack([(c >> 24) & 0xFF, (c >> 16) & 0xFF,
+                          (c >> 8) & 0xFF, c & 0xFF], dim=1)
+    return torch.cat([nonce_bytes.to(torch.uint8), ctr_be.to(torch.uint8)],
+                     dim=1)
+
+
+def aes_ctr_keystream(key: bytes, nonce_bytes: torch.Tensor,
+                      counters: torch.Tensor) -> torch.Tensor:
+    """Batched AES-CTR keystream blocks for one key, on the nonces' device:
+    uint8 [B, 16]."""
+    rks = aes_expand_key(np.frombuffer(key, np.uint8))
+    return aes_encrypt_blocks(aes_ctr_counter_blocks(nonce_bytes, counters),
+                              rks)
 
 
 def _aes_encrypt_blocks_np(blocks: np.ndarray, round_keys: np.ndarray) -> np.ndarray:

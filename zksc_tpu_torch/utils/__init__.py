@@ -1,1 +1,2 @@
-"""Host-only helpers (Keccak-256 for the MiMC constants)."""
+"""Host-only helpers: Keccak-256 for the MiMC constants, structured
+logging and trace spans."""
