@@ -147,6 +147,27 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      trace_span around one warm chacha20 proof with ZKSC_TRACE_DIR under
      chiprun_out/: the trace's size and CUDA kernel events (the file is
      removed after reading when over 16 MiB).
+ 13. the multi-device layer on the one card: the committed chacha20 key's
+     ProverContext on meshes of D = 2 and D = 4 shards (make_mesh(D): D
+     shards on the card, run one after another, so the seconds printed
+     beside the one-device stages are the layer's overhead, not a
+     speed-up): the sharded H limbs equal the one-device limbs, the proof
+     under a fixed rng equals the one-device proof, verifies, and a
+     flipped ciphertext byte is rejected; K1 and K2 launch counts, reset
+     just before, > 0. ShardedNTT over 8 shards at 2^16 and 2^18, each
+     transform equal to NTTContext's. The x^100 circuit of phase 7 on a
+     mesh of 4 (one K3 ladder a shard, partial sums added on the host):
+     equal to the one-device proof, K3 > 0. Two processes (this script
+     with --mesh-worker PID PORT) under parallel.multihost.initialize
+     (gloo, the card's blocks staged through the host): the 4-shard
+     global mesh's ShardedNTT equals the one-device transform, each
+     process proves its host_slice of 4 chacha20 requests, and this
+     process verifies all 4. The port's tools as subprocesses, output
+     printed and exit code checked: profile_prove_torch.py 2,
+     bench_stark_torch.py at log 6 and 64 AES blocks,
+     gen_oneblock_artifacts_torch.py followed by one proof with its key,
+     and the two that need the reference checkout, which must exit
+     non-zero naming the missing file.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
      6, 7, 8, 9, 10 and 11): the first of the largest inputs each kernel
      variant got in
@@ -2596,6 +2617,377 @@ def drive_interop(api, key, ct, iv, env, rng, reset_counts, counts) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 13: multi-device
+
+MESH_SEED = 20245         # seed of phase 13's inputs and blinding
+MESH_OUT = os.path.join(HERE, "zksc_tpu_torch", "build", "phase13_multihost")
+MESH_NTT_LOG = 16         # the two-process NTT: the chacha20 domain
+
+
+def mesh_requests(n: int) -> list:
+    """n chacha20 requests (key, 128-byte ciphertext, iv) from MESH_SEED."""
+    import random
+    r = random.Random(MESH_SEED)
+    return [{"key": bytes(r.randrange(256) for _ in range(32)),
+             "ciphertext": bytes(r.randrange(256) for _ in range(128)),
+             "iv": bytes(r.randrange(256) for _ in range(12))}
+            for _ in range(n)]
+
+
+def seeded_fr(n: int, device):
+    import numpy as np
+
+    from zksc_tpu_torch.fields.limb import Fr
+    rs = np.random.RandomState(MESH_SEED + n)
+    vals = [int(a) * int(b) % Fr.p for a, b in
+            zip(rs.randint(1, 2**62, size=n), rs.randint(1, 2**62, size=n))]
+    return Fr.to_device(vals, device=device)
+
+
+def mesh_worker(argv) -> int:
+    """One of phase 13's two processes (chip_smoke.py --mesh-worker PID
+    PORT): joins a gloo group through parallel.multihost, runs the sharded
+    NTT over the 4-shard global mesh (2 shards a process, both on the
+    card; the exchanges at the widest span cross the process boundary,
+    staged through the host) against the one-device transform, then
+    proves its host_slice of the 4 chacha20 requests on the card and
+    writes their envelopes to MESH_OUT/proofs_PID.json."""
+    import torch
+
+    from zksc_tpu_torch import api
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.ops.ntt import NTTContext
+    from zksc_tpu_torch.ops.ntt_sharded import ShardedNTT
+    from zksc_tpu_torch.parallel import multihost
+    pid, port = int(argv[0]), argv[1]
+    t = time.time()
+    if not multihost.initialize(f"127.0.0.1:{port}", 2, pid):
+        raise AssertionError("the process group did not start")
+    backend = torch.distributed.get_backend()
+    mesh = multihost.global_mesh(devices=["cuda", "cuda"])
+    if mesh.size != 4 or mesh.local_shards != [2 * pid, 2 * pid + 1]:
+        raise AssertionError(f"unexpected global mesh {mesh}")
+    log(f"phase 13 worker {pid}: {backend} group, {mesh} "
+        f"({time.time() - t:.2f} s)")
+    n = 1 << MESH_NTT_LOG
+    ntt = NTTContext(Fr, n, device="cuda")
+    sntt = ShardedNTT(ntt, mesh)
+    x = seeded_fr(n, "cuda")
+    blocks = sntt.sharding.shard(x)
+    for name in ("dif_inverse", "dit_forward", "coset_evals_from_coeffs_br",
+                 "coeffs_br_from_coset_evals"):
+        t = time.time()
+        got = getattr(sntt, name)(blocks)
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        want = getattr(ntt, name)(x)
+        for d in mesh.local_shards:
+            if not torch.equal(got[d], want[:, d * sntt.C:(d + 1) * sntt.C]):
+                raise AssertionError(f"worker {pid}: shard {d} of {name} "
+                                     "differs from the one-device transform")
+        log(f"phase 13 worker {pid}: two-process {name} 2^{MESH_NTT_LOG} "
+            f"equal on shards {mesh.local_shards} ({secs * 1e3:.1f} ms)")
+    reqs = mesh_requests(4)
+    mine = multihost.host_slice(len(reqs))
+    t = time.time()
+    envs = api.generate_proofs("chacha20", reqs[mine], device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 13 worker {pid}: proved requests [{mine.start}, {mine.stop}) "
+        f"in {time.time() - t:.2f} s (keys load + context + prove)")
+    os.makedirs(MESH_OUT, exist_ok=True)
+    with open(os.path.join(MESH_OUT, f"proofs_{pid}.json"), "w") as f:
+        json.dump({"slice": [mine.start, mine.stop],
+                   "envelopes": [e.to_json() for e in envs]}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_two_processes(api) -> None:
+    """Phase 13's two-process part: start both workers, wait for them
+    (killing both on a failure or after 300 s), then verify all four
+    proofs here and reject a flipped ciphertext byte."""
+    import shutil
+    import socket
+    t = time.time()
+    shutil.rmtree(MESH_OUT, ignore_errors=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ZKSC_COORDINATOR", "ZKSC_NUM_PROCS", "ZKSC_PROC_ID")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-worker", str(pid), str(port)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"    [worker {pid}] {line}", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"phase 13 worker {pid} exited "
+                                 f"{p.returncode}")
+    from zksc_tpu_torch.api import ProofEnvelope
+    reqs = mesh_requests(4)
+    envs = [None] * len(reqs)
+    for pid in range(2):
+        with open(os.path.join(MESH_OUT, f"proofs_{pid}.json")) as f:
+            rec = json.load(f)
+        for i, e in zip(range(*rec["slice"]), rec["envelopes"]):
+            envs[i] = ProofEnvelope.from_json(e)
+    ok = [envs[i] is not None and api.verify_proof(
+        envs[i], r["ciphertext"], r["iv"], device="cuda")
+        for i, r in enumerate(reqs)]
+    bad = bytes([reqs[0]["ciphertext"][0] ^ 1]) + reqs[0]["ciphertext"][1:]
+    rejected = not api.verify_proof(envs[0], bad, reqs[0]["iv"],
+                                    device="cuda")
+    log(f"phase 13 two processes (gloo): {sum(ok)} of {len(reqs)} proofs "
+        f"verified here, flipped ciphertext byte rejected {rejected} "
+        f"({time.time() - t:.2f} s with both workers' start)")
+    if not all(ok) or not rejected:
+        raise AssertionError("phase 13: a two-process proof failed")
+
+
+def run_tool(args: list, missing: str | None = None):
+    """Run tools/<args[0]> as a subprocess and print its output. It must
+    exit 0; or, given `missing` (a reference file this checkout lacks),
+    exit non-zero with a message naming that file."""
+    t = time.time()
+    env = dict(os.environ)
+    if missing is not None:
+        env["ZKSC_REFERENCE_RESOURCES"] = os.path.join(
+            HERE, "zksc_tpu_torch", "build", "phase13_no_reference")
+        missing = os.path.join(env["ZKSC_REFERENCE_RESOURCES"], missing)
+    out = subprocess.run([sys.executable, os.path.join(HERE, "tools", args[0]),
+                          *args[1:]], capture_output=True, text=True,
+                         timeout=600, cwd=HERE, env=env)
+    text = out.stdout + out.stderr
+    for line in text.splitlines():
+        print(f"    [{args[0]}] {line}", flush=True)
+    ok = out.returncode == 0 if missing is None else \
+        out.returncode != 0 and missing in text
+    log(f"phase 13 tool {' '.join(args)}: exit {out.returncode} "
+        f"({time.time() - t:.2f} s){'' if ok else ' UNEXPECTED'}")
+    if not ok:
+        raise AssertionError(f"phase 13: tools/{args[0]} ended with "
+                             f"{out.returncode}")
+
+
+def drive_mesh(api, reset_counts, counts) -> dict:
+    """Phase 13. Returns the launch counts of the D = 4 chacha20 proof
+    (K1, K2) and of the D = 4 ladder proof (K3)."""
+    import random
+
+    import torch
+
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.groth16 import ProverContext, setup, verify
+    from zksc_tpu_torch.ops.ntt import NTTContext
+    from zksc_tpu_torch.ops.ntt_sharded import ShardedNTT
+    from zksc_tpu_torch.parallel.mesh import make_mesh
+    from zksc_tpu_torch.r1cs import compile_circuit, generate_witness
+    t0 = time.time()
+    out = {}
+
+    def blinding():
+        r = random.Random(MESH_SEED)
+        return lambda: r.randrange(1, host.R)
+
+    def stages(timings):
+        return " ".join(f"{k}={v:.3f}" for k, v in timings.items())
+
+    # ---- the sharded chacha20 proof, D = 2 and 4 shards on the one card
+    req = mesh_requests(1)[0]
+    op = api.get_operator("chacha20", "groth16", "cuda")
+    op._ensure_keys()
+    one = op._ctx
+    wi = api.generate_zk_witness("chacha20", req["key"], req["ciphertext"],
+                                 req["iv"])
+    wit = op.spec.build_witness(wi)
+    pub = api.get_public_signals("chacha20", req["ciphertext"], req["iv"],
+                                 wi.plaintext)
+    bad_ct = bytes([req["ciphertext"][0] ^ 1]) + req["ciphertext"][1:]
+    bad_pub = api.get_public_signals("chacha20", bad_ct, req["iv"],
+                                     wi.plaintext)
+    z_mont, _, _ = one._witnesses_to_device([wit])
+    h1 = one.compute_h_batch(z_mont)
+    p1 = one.prove(wit, rng=blinding())            # warm: phase 4 built it
+    torch.cuda.synchronize()
+    t = time.time()
+    p1 = one.prove(wit, rng=blinding())
+    torch.cuda.synchronize()
+    one_s, one_stages = time.time() - t, dict(one.timings)
+    log(f"phase 13 one-device chacha20 proof: {one_s:.3f} s "
+        f"({stages(one_stages)})")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for D in (2, 4):
+        t = time.time()
+        ctx = ProverContext(one.cs, one.pk, device="cuda", mesh=make_mesh(D))
+        hD = ctx.compute_h_batch(z_mont)
+        if ctx._h_sharded is None or not torch.equal(hD, h1):
+            raise AssertionError(f"phase 13: the D = {D} H limbs differ "
+                                 "from the one-device limbs")
+        ctx.prove(wit, rng=blinding())             # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.time()
+        p = ctx.prove(wit, rng=blinding())
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        launches = counts()
+        same = (p.a, p.b, p.c) == (p1.a, p1.b, p1.c)
+        ok = op.verify(pub, p.to_json_dict())
+        rejected = not op.verify(bad_pub, p.to_json_dict())
+        log(f"phase 13 chacha20 on a mesh of {D} shards (one card: the "
+            f"shards run one after another, so this is the layer's "
+            f"overhead, not a speed-up): H limbs equal, proof {secs:.3f} s "
+            f"({stages(ctx.timings)}) beside one device {one_s:.3f} s "
+            f"({stages(one_stages)}); equal to the one-device proof {same}, "
+            f"verify {ok}, flipped ciphertext byte rejected {rejected}; "
+            f"launches {launches} ({time.time() - t:.2f} s with the context)")
+        if not (same and ok and rejected):
+            raise AssertionError(f"phase 13: the D = {D} proof failed")
+        for k in ("chunk_scan", "jac_add_n"):
+            if launches[k] <= 0:
+                raise AssertionError(f"phase 13: {k} not launched at D = {D}")
+        out["chacha20"] = launches
+    log(f"phase 13 peak device memory of the mesh proofs "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB "
+        f"above the {held / 2**30:.3f} GiB that earlier phases hold")
+    del ctx
+
+    # ---- the sharded NTT, D = 8, against NTTContext
+    for log_n in (16, 18):
+        t = time.time()
+        ntt = one.ntt if log_n == 16 else NTTContext(Fr, 1 << log_n,
+                                                     device="cuda")
+        sntt = ShardedNTT(ntt, make_mesh(8))
+        x = seeded_fr(1 << log_n, "cuda")
+        blocks = sntt.sharding.shard(x)
+        times = []
+        for name in ("dif_inverse", "dit_forward",
+                     "coset_evals_from_coeffs_br",
+                     "coeffs_br_from_coset_evals"):
+            ms = []
+            for fn in (lambda: getattr(ntt, name)(x),
+                       lambda: sntt.sharding.gather(
+                           getattr(sntt, name)(blocks))):
+                fn()
+                torch.cuda.synchronize()
+                t1 = time.time()
+                r = fn()
+                torch.cuda.synchronize()
+                ms.append(((time.time() - t1) * 1e3, r))
+            if not torch.equal(ms[0][1], ms[1][1]):
+                raise AssertionError(f"phase 13: sharded {name} 2^{log_n} "
+                                     "differs from NTTContext")
+            times.append(f"{name} {ms[0][0]:.2f} / {ms[1][0]:.2f} ms")
+        log(f"phase 13 ShardedNTT 2^{log_n}, D = 8, equal to NTTContext "
+            f"(one device / sharded, host clock): {'; '.join(times)} "
+            f"({time.time() - t:.2f} s with the tables)")
+
+    # ---- the ladder branch on a D = 4 mesh: the x^100 circuit of phase 7
+    t = time.time()
+    define = _power_circuit(99, False)
+    pub_l, priv_l = [("out", 1)], [("x", 1)]
+    cs = compile_circuit(define, pub_l, priv_l)
+    srng = random.Random(23)
+    pk, vk = setup(cs, rng=lambda: srng.randrange(2, host.R), device="cuda")
+    x = 7
+    o = (pow(x, 100, host.R) + x + 41) % host.R
+    wl = generate_witness(define, pub_l, priv_l, {"out": [[o]]},
+                          {"x": [[x]]}, batch=1)[:, 0]
+    lad1 = ProverContext(cs, pk, device="cuda").prove(wl, rng=blinding())
+    ctx4 = ProverContext(cs, pk, device="cuda", mesh=make_mesh(4))
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.time()
+    lad4 = ctx4.prove(wl, rng=blinding())
+    torch.cuda.synchronize()
+    secs = time.time() - t1
+    launches = counts()
+    same = (lad4.a, lad4.b, lad4.c) == (lad1.a, lad1.b, lad1.c)
+    ok = verify(vk, lad4, [o]) and not verify(vk, lad4, [(o + 1) % host.R])
+    log(f"phase 13 ladder branch (x^100, m_pad {ctx4.m_pad}) on a mesh of 4: "
+        f"proof {secs:.3f} s, equal to the one-device proof {same}, verify "
+        f"and tamper {ok}; launches {launches} ({time.time() - t:.2f} s "
+        f"with setup)")
+    if not (same and ok) or launches["ladder"] <= 0:
+        raise AssertionError("phase 13: the ladder-branch mesh proof failed")
+    out["ladder"] = launches
+
+    # ---- two processes under multihost.initialize (gloo)
+    run_two_processes(api)
+
+    # ---- the tools
+    run_tool(["profile_prove_torch.py", "2"])
+    run_tool(["bench_stark_torch.py", "--chacha-logs", "6", "--aes-blocks",
+              "64", "--repeat", "1"])
+    run_tool(["gen_oneblock_artifacts_torch.py"])
+    prove_one_block(api)
+    run_tool(["run_imported_r1cs_e2e_torch.py"],
+             missing=os.path.join("gnark", "r1cs.chacha20"))
+    run_tool(["stwo_crosscheck_torch.py"],
+             missing=os.path.join("stwo", "s2circuits_bg.wasm"))
+    log(f"phase 13 total {time.time() - t0:.2f} s")
+    return out
+
+
+def prove_one_block(api):
+    """One proof with the key gen_oneblock_artifacts_torch.py wrote: the
+    1-block chacha20 circuit, verified, a flipped public bit rejected."""
+    import random
+
+    import torch
+
+    from zksc_tpu_torch.groth16 import ProverContext, verify
+    from zksc_tpu_torch.groth16 import artifacts as art
+    from zksc_tpu_torch.ops.ciphers import chacha20_encrypt
+    from zksc_tpu_torch.r1cs import compile_circuit, generate_witness
+    from zksc_tpu_torch.r1cs.circuits import chacha20 as cc
+    t = time.time()
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from gen_oneblock_artifacts_torch import OUT_DIR
+    cs = compile_circuit(cc.make_define(1), cc.public_layout(1),
+                         cc.private_layout(1))
+    pk, vk = art.load_keys(OUT_DIR, expected_digest=cs.digest(),
+                           device="cuda")
+    r = random.Random(MESH_SEED + 1)
+    key = bytes(r.randrange(256) for _ in range(32))
+    iv = bytes(r.randrange(256) for _ in range(12))
+    ct = bytes(r.randrange(256) for _ in range(64))
+    pt = chacha20_encrypt(key, iv, 1, ct)
+    pub, priv = cc.witness_inputs([key], [[(iv, 1)]], [[ct]], [[pt]], 1)
+    w = generate_witness(cc.make_define(1), cc.public_layout(1),
+                         cc.private_layout(1), pub, priv, batch=1)
+    t1 = time.time()
+    proof = ProverContext(cs, pk, device="cuda").prove(w[:, 0])
+    torch.cuda.synchronize()
+    secs = time.time() - t1
+    pub_vals = [int(v) for v in w[1:1 + cs.n_public, 0]]
+    bad = list(pub_vals)
+    bad[0] ^= 1
+    ok, rejected = verify(vk, proof, pub_vals), not verify(vk, proof, bad)
+    log(f"phase 13 1-block chacha20 ({cs.n_constraints} constraints, domain "
+        f"{pk.domain_n}) with the tool's key: proof {secs:.3f} s (context "
+        f"+ prove), verify {ok}, tampered bit rejected {rejected} "
+        f"({time.time() - t:.2f} s with compile and load)")
+    if not (ok and rejected):
+        raise AssertionError("phase 13: the 1-block proof failed")
+
+
 def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None,
                        groups=None):
     """Phase 5 for K7: the largest call of each K7 instance in one warm
@@ -2728,6 +3120,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if argv[:1] == ["--mesh-worker"]:           # one of phase 13's processes
+        return mesh_worker(argv[1:])
 
     # ---- 1. environment
     device = torch.device("cuda")
@@ -2884,6 +3278,12 @@ def main(argv) -> int:
     drive_interop(api, key, ct, iv, env, rng, reset_counts, counts)
     log(f"phase 12 added {time.time() - t:.2f} s")
 
+    # ---- 13. the multi-device layer: meshes of shards on the card, two
+    # processes, the port's tools
+    t = time.time()
+    mesh_launches = drive_mesh(api, reset_counts, counts)
+    log(f"phase 13 added {time.time() - t:.2f} s")
+
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")
             + time_kernels(rec_aes.calls, imad_rate, "aes-128-ctr")
@@ -2920,10 +3320,12 @@ def main(argv) -> int:
 
     ec_src = "zksc_tpu_torch/csrc/ec_kernels.cu"
     print(json.dumps({"kernels": [
-        head("chunk_scan", "zksc_tpu/ops/pallas_ec.py:120", ec_src, "chacha20",
-             "G1 inclusive=True", launches["chunk_scan"]),
-        head("jac_add_n", "zksc_tpu/ops/pallas_ec.py:162", ec_src, "chacha20",
-             "G1 complete=False", launches["jac_add_n"]),
+        dict(head("chunk_scan", "zksc_tpu/ops/pallas_ec.py:120", ec_src,
+                  "chacha20", "G1 inclusive=True", launches["chunk_scan"]),
+             launches_mesh4=mesh_launches["chacha20"]["chunk_scan"]),
+        dict(head("jac_add_n", "zksc_tpu/ops/pallas_ec.py:162", ec_src,
+                  "chacha20", "G1 complete=False", launches["jac_add_n"]),
+             launches_mesh4=mesh_launches["chacha20"]["jac_add_n"]),
         # K3's plain time is that of the check size (phase 3, N=4,096 x 32
         # bits): the plain ladder at the ceremony's shape takes minutes
         dict(head("ladder", "zksc_tpu/ops/pallas_msm.py:58",
@@ -2931,7 +3333,8 @@ def main(argv) -> int:
                   "G1 unreduced shared bits", aes_launches["ladder"],
                   k3_plain_ms["G1 unreduced shared bits"]),
              plain_shape="G1 unreduced shared bits N=4096 bits=32",
-             launches_ladder_branch=ladder_launches["ladder"]),
+             launches_ladder_branch=ladder_launches["ladder"],
+             launches_mesh4_ladder_branch=mesh_launches["ladder"]["ladder"]),
     ] + stark_kernel_entries(stark_rows, stark_per_proof, stark_launches, err)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,11 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "examples", "toprf_threshold_service_torch.py")
-    yield os.path.join(ROOT, "tools", "artifacts_cli_torch.py")
+    for tool in ("artifacts_cli", "profile_prove", "bench_stark",
+                 "stwo_crosscheck", "run_imported_r1cs_e2e",
+                 "gen_oneblock_artifacts"):
+        yield os.path.join(ROOT, "tools", f"{tool}_torch.py")
+    yield os.path.join(ROOT, "tests", "port", "torch_multihost_worker.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -73,6 +77,8 @@ print(" ".join(mods))
         "file_fetch", "utils.logging", "interop.cbor", "interop.intcomp",
         "interop.gnark_r1cs", "interop.gnark", "interop.snarkjs",
         "interop.circom_wasm", "interop.stwo_wasm")} <= set(mods)
+    assert {f"zksc_tpu_torch.{m}" for m in (
+        "parallel.mesh", "parallel.multihost", "ops.ntt_sharded")} <= set(mods)
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -144,6 +150,21 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         wp.prove_stream_bytes(bytes(32), bytes(12), 1, bytes(128), bytes(128))
     with pytest.raises(RuntimeError, match="CUDA"):
         StwoCompatOperator("chacha20")
+    # the multi-device layer: a mesh naming CUDA raises, as do the tools
+    from zksc_tpu_torch.parallel import mesh, multihost
+    for make in (mesh.make_mesh, lambda: mesh.make_mesh(2, ["cuda"]),
+                 multihost.local_mesh, multihost.global_mesh,
+                 lambda: ProverContext(None, None, mesh=mesh.make_mesh(2))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    monkeypatch.setenv("ZKSC_MESH", "2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Groth16Operator("chacha20")
+    from test_torch_tools import load_tool
+    for tool in ("profile_prove_torch", "bench_stark_torch",
+                 "gen_oneblock_artifacts_torch"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load_tool(tool).main([])
 
 
 def test_aes_composition_wrapper_refuses_cpu_tensors():

@@ -11,9 +11,16 @@ Pipeline (the JAX package's ``groth16/prove.py``):
      ladders (ops/ec.py:msm_double_and_add, the kernel K3 on the GPU); B2
      on the host for m_pad <= 64
   4. final blinding combine (r, s) on the host — a handful of point ops.
+
+With a mesh (parallel/mesh.py), the quotient runs sharded
+(_build_sharded_h: the block-sharded mat-vec, a reduce-scatter and
+ops/ntt_sharded.py), every bucket MSM splits its points over the shards,
+and the ladders run one K3 per shard over its lanes; the partial sums are
+added on the host, so the proof equals the one-device proof.
 """
 from __future__ import annotations
 
+import functools
 import secrets
 import time
 from dataclasses import dataclass
@@ -69,12 +76,26 @@ class ProverContext:
     and the proving key (whose tables must already be on `device`)."""
 
     def __init__(self, cs: ConstraintSystem, pk: ProvingKey, device=None,
-                 force_pippenger: bool = False):
+                 force_pippenger: bool = False, mesh=None):
         """force_pippenger: use the bucket MSMs even for tiny circuits (the
-        default routes m_pad < 256 to the double-and-add ladders)."""
+        default routes m_pad < 256 to the double-and-add ladders).
+
+        mesh: optional parallel.mesh.Mesh whose shards all lie in this
+        process: shards the quotient pipeline and every MSM's point lanes
+        over its devices (the default device is then shard 0's). Proofs
+        equal the one-device proofs: the sharded arithmetic is the same,
+        and EC group addition is exact and associative, so the partition
+        of the lanes cannot change a point."""
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        if mesh is not None and not mesh.all_local:
+            raise ValueError("a prover's mesh needs every shard in this "
+                             "process (across processes, split the batch: "
+                             "parallel.multihost.host_slice)")
         self.cs = cs
         self.pk = pk
+        self.mesh = mesh
         self.force_pippenger = force_pippenger
         self._b2_host_pts = None     # lazy host copy of b_g2_query (tiny cs)
         self.timings: dict = {}
@@ -97,10 +118,105 @@ class ProverContext:
                                 device=self.device),
                 Fr.to_device(coeffs, device=self.device),
             ))
+        self._h_sharded = self._build_sharded_h(mesh) if mesh is not None \
+            else None
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _build_sharded_h(self, mesh):
+        """Mesh-sharded quotient pipeline, the JAX package's
+        _build_sharded_h on the port's mesh:
+
+        - sparse A/B/C eval: the COO entries block-sharded over the shards
+          (padded with inert zero-coefficient entries on row 0), each shard
+          segment-sums its block into full rows (index_add_), then a
+          reduce-scatter: the sum over shards of lanes [d*C, (d+1)*C)
+          lands on shard d, which normalises, reduces and returns to
+          Montgomery form;
+        - NTTs: ops/ntt_sharded.ShardedNTT.
+
+        Equal to the one-device _h_core limb for limb. Returns None when
+        the domain does not tile the mesh."""
+        from ..ops.ntt_sharded import ShardedNTT
+        from ..parallel.mesh import replicate
+
+        D, n = mesh.size, self.ntt.n
+        if n % D != 0 or (n // D) < 2:
+            return None
+        sntt = ShardedNTT(self.ntt, mesh)
+        C = n // D
+        pad = torch.nn.functional.pad
+        shards = []
+        for rows, cols, coeffs in self._mats:
+            npad = (-int(rows.shape[0])) % D
+            rows, cols, coeffs = (pad(rows, (0, npad)), pad(cols, (0, npad)),
+                                  pad(coeffs, (0, npad)))
+            E = int(rows.shape[0]) // D
+            shards.append([(rows[e * E:(e + 1) * E].to(dev),
+                            cols[e * E:(e + 1) * E].to(dev),
+                            coeffs[:, e * E:(e + 1) * E].to(dev))
+                           for e, dev in enumerate(mesh.devices)])
+        zinv_int = pow(self.ntt.z_coset_int, -1, host.R)
+        zinv = replicate(Fr.broadcast_const(zinv_int, (1,),
+                                            device=self.device), mesh)
+
+        def matvec(mat_shards, z_blocks):
+            partial = []
+            for (rows, cols, coeffs), z in zip(mat_shards, z_blocks):
+                prod = Fr.mont_mul(z[:, cols], coeffs)
+                sums = torch.zeros((Fr.L, n), dtype=torch.int64,
+                                   device=z.device)
+                sums.index_add_(1, rows, prod.to(torch.int64))
+                partial.append(sums)
+            out = []
+            for d, dev in enumerate(mesh.devices):
+                acc = partial[0][:, d * C:(d + 1) * C].to(dev)
+                for e in range(1, D):
+                    acc = acc + partial[e][:, d * C:(d + 1) * C].to(dev)
+                norm = Fr.normalize_u32_limbs([acc[j] for j in range(Fr.L)])
+                out.append(Fr.to_mont(Fr.mont_reduce_wide(norm)))
+            return out
+
+        def h_core_sharded(z_mont_1):
+            z_blocks = replicate(z_mont_1, mesh)
+            a_cs, b_cs, c_cs = (
+                sntt.coset_evals_from_coeffs_br(
+                    sntt.dif_inverse(matvec(m, z_blocks)))
+                for m in shards)
+            h_cs = [Fr.mont_mul(Fr.sub(Fr.mont_mul(a, b), c), zi)
+                    for a, b, c, zi in zip(a_cs, b_cs, c_cs, zinv)]
+            h_br = sntt.coeffs_br_from_coset_evals(h_cs)
+            return sntt.sharding.gather([Fr.from_mont(h) for h in h_br],
+                                        device=self.device)
+
+        return h_core_sharded
+
+    def _ladder_msm(self, fops, q: ec.JacPoint, bits, n_bits: int) -> list:
+        """Device half of a ladder MSM over k scalar sets: one width-k
+        JacPoint per shard. With a mesh of D shards that tiles the lanes,
+        each shard runs the ladder and its reduction (K3) over its own
+        lanes; without, one JacPoint over all of them."""
+        from ..parallel.mesh import shard_bits, shard_jac
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1 or \
+                fops.lane_width(q.x) % mesh.size:
+            return [ec.msm_double_and_add(fops, q, bits, n_bits)]
+        g2 = isinstance(fops, ec.Fp2Ops)
+        return [ec.msm_double_and_add(fops, qd, bd, n_bits)
+                for qd, bd in zip(shard_jac(q, mesh, g2),
+                                  shard_bits(bits, mesh))]
+
+    @staticmethod
+    def _ladder_to_host(fops, parts: list, k: int) -> list:
+        """Per-shard ladder sums -> k host affine points (the D partials
+        added on the host)."""
+        g2 = isinstance(fops, ec.Fp2Ops)
+        conv = ec.g2_jac_to_host_affine if g2 else ec.g1_jac_to_host_affine
+        add = host.g2_add if g2 else host.g1_add
+        pts = [conv(Fp, p, host.P)[:k] for p in parts]
+        return [functools.reduce(add, (p[j] for p in pts)) for j in range(k)]
 
     def _matvec(self, mat, z_mont):
         """<M, z> per constraint row: returns [L, domain_n] Montgomery evals."""
@@ -157,8 +273,10 @@ class ProverContext:
         return Fr.from_mont(h_br)
 
     def compute_h_batch(self, z_mont):
-        """z_mont [L, k, m_pad] -> h [L, k, n] plain limbs."""
-        return torch.stack([self._h_core(z_mont[:, j])
+        """z_mont [L, k, m_pad] -> h [L, k, n] plain limbs (sharded over the
+        mesh when it tiles the domain)."""
+        core = self._h_sharded or self._h_core
+        return torch.stack([core(z_mont[:, j])
                             for j in range(z_mont.shape[1])], dim=1)
 
     def prove(self, witness: np.ndarray, rng=None) -> Proof:
@@ -196,18 +314,21 @@ class ProverContext:
             b2_pts = [self._b2_msm_host(w) for w in witnesses]
 
         if self.m_pad >= 256 or self.force_pippenger:
-            # bucket MSMs; all launch before any host read-back: only the
-            # affine conversions below synchronise
-            a_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.a_query, z_plain, nb)
+            # bucket MSMs (points split over the mesh's shards, if any);
+            # all launch before any host read-back: only the affine
+            # conversions below synchronise
+            mh = self.mesh
+            a_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.a_query, z_plain,
+                                             nb, mesh=mh)
             b1_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.b_g1_query,
-                                              z_plain, nb)
+                                              z_plain, nb, mesh=mh)
             if not host_b2:
                 b2_dev = msm.msm_pippenger_device(ec.G2_OPS, pk.b_g2_query,
-                                                  z_plain, nb)
+                                                  z_plain, nb, mesh=mh)
             c_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.c_query,
-                                             priv_plain, nb)
+                                             priv_plain, nb, mesh=mh)
             h_dev = msm.msm_pippenger_device(ec.G1_OPS, pk.h_query, h_plain,
-                                             254)
+                                             254, mesh=mh)
             mark()
             a_pts = msm.msm_to_host_affine(ec.G1_OPS, a_dev, k)
             b1_pts = msm.msm_to_host_affine(ec.G1_OPS, b1_dev, k)
@@ -217,25 +338,25 @@ class ProverContext:
             h_pts = msm.msm_to_host_affine(ec.G1_OPS, h_dev, k)
         else:
             # tiny circuits: batched double-and-add ladders, the proof axis
-            # folded into the lanes and reduced per segment
+            # folded into the lanes and reduced per segment (per shard, with
+            # a mesh)
             z_bits = ec.scalars_to_bits(Fr, z_plain, nb)
             priv_bits = ec.scalars_to_bits(Fr, priv_plain, nb)
             h_bits = ec.scalars_to_bits(Fr, h_plain, 254)
-            a_msm = ec.msm_double_and_add(ec.G1_OPS, pk.a_query, z_bits, nb)
-            b1_msm = ec.msm_double_and_add(ec.G1_OPS, pk.b_g1_query, z_bits,
-                                           nb)
+            G1, G2 = ec.G1_OPS, ec.G2_OPS
+            a_msm = self._ladder_msm(G1, pk.a_query, z_bits, nb)
+            b1_msm = self._ladder_msm(G1, pk.b_g1_query, z_bits, nb)
             if not host_b2:
-                b2_msm = ec.msm_double_and_add(ec.G2_OPS, pk.b_g2_query,
-                                               z_bits, nb)
-            c_msm = ec.msm_double_and_add(ec.G1_OPS, pk.c_query, priv_bits, nb)
-            h_msm = ec.msm_double_and_add(ec.G1_OPS, pk.h_query, h_bits, 254)
+                b2_msm = self._ladder_msm(G2, pk.b_g2_query, z_bits, nb)
+            c_msm = self._ladder_msm(G1, pk.c_query, priv_bits, nb)
+            h_msm = self._ladder_msm(G1, pk.h_query, h_bits, 254)
             mark()
-            a_pts = ec.g1_jac_to_host_affine(Fp, a_msm, host.P)[:k]
-            b1_pts = ec.g1_jac_to_host_affine(Fp, b1_msm, host.P)[:k]
+            a_pts = self._ladder_to_host(G1, a_msm, k)
+            b1_pts = self._ladder_to_host(G1, b1_msm, k)
             if not host_b2:
-                b2_pts = ec.g2_jac_to_host_affine(Fp, b2_msm, host.P)[:k]
-            c_pts = ec.g1_jac_to_host_affine(Fp, c_msm, host.P)[:k]
-            h_pts = ec.g1_jac_to_host_affine(Fp, h_msm, host.P)[:k]
+                b2_pts = self._ladder_to_host(G2, b2_msm, k)
+            c_pts = self._ladder_to_host(G1, c_msm, k)
+            h_pts = self._ladder_to_host(G1, h_msm, k)
 
         proofs = []
         g = host

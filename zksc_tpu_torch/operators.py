@@ -4,9 +4,10 @@ Ported from the JAX package's ``operators.py``: the six statements
 (chacha20, aes-128-ctr, aes-256-ctr and their ``-toprf`` variants) under
 the "groth16" engine, chacha20, aes-128-ctr and aes-256-ctr under the
 "stark" engine (Circle STARK over M31), and chacha20 under "stark-stwo"
-(byte-identical stwo proofs). The ``-toprf`` statements under "stark" and
-the multi-device mesh are not ported yet, and the reference runs
-"stark-stwo" for chacha20 only; asking for any of them raises.
+(byte-identical stwo proofs). Under "groth16" a prover may shard over a
+mesh of devices (``mesh=`` or ZKSC_MESH). The reference proves the
+``-toprf`` statements under "groth16" only and runs "stark-stwo" for
+chacha20 only; asking for any other pair raises in both packages.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .api import PORTED_ALGORITHMS, ZKProofInput
 from .config import CONFIG
@@ -117,12 +119,27 @@ class Groth16Operator:
     (zksc_tpu_torch/build/artifacts/<algorithm>, what keygen writes). With
     neither, and `allow_setup`, the trusted setup runs on the device and its
     keys are saved into the key store, never under artifacts/. The circuit
-    digest is pinned on every load."""
+    digest is pinned on every load.
+
+    mesh: a parallel.mesh.Mesh to shard each proof over; without one,
+    ZKSC_MESH opts in: "all" (every visible CUDA device) or a shard count
+    n (make_mesh(n): on fewer cards the cards repeat; on the CPU, n shards
+    of the CPU). A mesh is used only when it has more than one shard."""
 
     def __init__(self, algorithm: str, artifact_dir: str | None = None,
-                 allow_setup: bool = True, device=None):
+                 allow_setup: bool = True, device=None, mesh=None):
         from .keygen import KEY_STORE
         self.device = resolve_device(device)
+        if mesh is None:
+            env = os.environ.get("ZKSC_MESH", "")
+            if env:
+                from .parallel.mesh import make_mesh
+                cuda = self.device.type == "cuda"
+                n = (torch.cuda.device_count() if cuda else 1) \
+                    if env == "all" else int(env)
+                if n > 1:
+                    mesh = make_mesh(n, None if cuda else [self.device])
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.spec = CircuitSpec(algorithm)
         self.algorithm = algorithm
         self._dir = artifact_dir or os.path.join(ARTIFACT_ROOT, algorithm)
@@ -155,7 +172,8 @@ class Groth16Operator:
             raise FileNotFoundError(
                 f"no proving key for {self.algorithm} under {self._dir} or "
                 f"{self._store}, and setup disabled")
-        self._ctx = ProverContext(cs, pk, device=self.device)
+        self._ctx = ProverContext(cs, pk, device=self.device,
+                                  mesh=self.mesh)
         self._vk = vk
 
     def ensure_vk(self):

@@ -35,6 +35,10 @@ scans; K2 for the Hillis-Steele top, the boundary and prefix corrections and
 the halving reduce): on a CUDA tensor that is the hand-written kernel, on a
 CPU tensor its plain PyTorch version. Unlike the JAX package there is no
 tile-multiple condition: every call takes the kernel.
+
+With a mesh (parallel/mesh.py), msm_pippenger_device splits the points
+over the shards and each shard runs the whole pipeline on its own device
+(_window_sums_sharded); msm_to_host_affine adds the shards' window sums.
 """
 from __future__ import annotations
 
@@ -303,22 +307,43 @@ def batch_scalar_mul_fixed_base(scalars: list, base, g2: bool = False,
     return out
 
 
+def _window_sums_sharded(fops, points: JacPoint, digits, c: int, k: int,
+                         n: int, mesh) -> list:
+    """Shard the POINT axis over the mesh: each shard runs the whole bucket
+    pipeline (K1 and K2 on its own device) on its n / D points, since the
+    bucket method is additive over a partition of the points. Returns the
+    per-shard window sums, one JacPoint [L, k*W] per shard; the D partials
+    are added on the host (msm_to_host_affine). G2 blocks keep both halves
+    of their points (mesh.shard_jac unfolds (c0 | c1)), so the shards split
+    points, not components."""
+    from ..parallel.mesh import shard_bits, shard_jac
+    if not mesh.all_local:
+        raise ValueError("the sharded MSM needs every shard in this process "
+                         "(across processes, split the batch: host_slice)")
+    D = mesh.size
+    pts = shard_jac(points, mesh, g2=isinstance(fops, ec.Fp2Ops))
+    dgs = shard_bits(digits, mesh)
+    return [_window_sums(fops, p, dg, c, k, n // D)
+            for p, dg in zip(pts, dgs)]
+
+
 class MsmPending:
-    """In-flight bucket MSM: the per-(proof, window) sums live on the
-    device; the tiny window combine happens at msm_to_host_affine time in
-    host Jacobian bigints."""
+    """In-flight bucket MSM: the per-(shard, proof, window) sums live on
+    the devices, one JacPoint [L, k*Wn] per shard; the tiny window combine
+    happens at msm_to_host_affine time in host Jacobian bigints."""
 
-    __slots__ = ("sums", "c", "Wn", "k")
+    __slots__ = ("sums", "c", "Wn", "k", "D")
 
-    def __init__(self, sums, c, Wn, k):
-        self.sums, self.c, self.Wn, self.k = sums, c, Wn, k
+    def __init__(self, sums, c, Wn, k, D):
+        self.sums, self.c, self.Wn, self.k, self.D = sums, c, Wn, k, D
 
 
 def msm_pippenger_device(fops, points: JacPoint, scalars_plain, n_bits: int,
-                         c: int | None = None) -> MsmPending:
+                         c: int | None = None, mesh=None) -> MsmPending:
     """Device half of the bucket MSM: returns an MsmPending whose window
     sums stay on the device, WITHOUT synchronizing to the host, so several
-    MSMs queue back-to-back."""
+    MSMs queue back-to-back. With a mesh of D > 1 shards that tiles the n
+    points, each shard sums its n / D points."""
     single = scalars_plain.dim() == 2
     sp = scalars_plain[:, None, :] if single else scalars_plain
     k, n = int(sp.shape[1]), int(sp.shape[2])
@@ -327,33 +352,48 @@ def msm_pippenger_device(fops, points: JacPoint, scalars_plain, n_bits: int,
     Wn = -(-n_bits // c)
     digits = scalars_to_digits(sp, c, Wn)            # [W, k, n]
     digits = digits.permute(1, 0, 2)                 # [k, W, n]
-    sums = _window_sums(fops, points, digits, c, k, n)
-    return MsmPending(sums, c, Wn, k)
+    if mesh is not None and mesh.size > 1 and n % mesh.size == 0:
+        sums = _window_sums_sharded(fops, points, digits, c, k, n, mesh)
+    else:
+        sums = [_window_sums(fops, points, digits, c, k, n)]
+    return MsmPending(sums, c, Wn, k, len(sums))
 
 
 def msm_to_host_affine(fops, pending: MsmPending, k: int) -> list:
-    """Finalize an MsmPending: pull the [L, k*Wn] window sums (lane
-    j*Wn + w) and Horner-combine windows in host Jacobian coordinates."""
+    """Finalize an MsmPending: pull each shard's [L, k*Wn] window sums
+    (lane j*Wn + w), add the D per-shard partials on the host (exact group
+    math: the partition cannot change the result), then Horner-combine the
+    windows in host Jacobian coordinates."""
     from ..curve import bn254_host as host
 
     g2 = isinstance(fops, ec.Fp2Ops)
     conv = ec.g2_jac_to_host_affine if g2 else ec.g1_jac_to_host_affine
-    pts = conv(fops.F, pending.sums, host.P)
-    c, Wn = pending.c, pending.Wn
+    pts = [p for s in pending.sums for p in conv(fops.F, s, host.P)]
+    c, Wn, D = pending.c, pending.Wn, pending.D
     out = []
     for j in range(k):
-        wins = [pts[j * Wn + w] for w in range(Wn)]
+        wins = []
+        for w in range(Wn):
+            acc = None
+            for d in range(D):
+                p = pts[(d * pending.k + j) * Wn + w]
+                if p is not None:
+                    acc = host.jac_add_host(
+                        acc, host.jac_from_affine_host(p, g2), g2)
+            wins.append(host.jac_to_affine_host(acc, g2))
         out.append(host.combine_windows_host(wins, c, g2=g2))
     return out
 
 
 def msm_pippenger(fops, points: JacPoint, scalars_plain, n_bits: int,
-                  c: int | None = None) -> list:
+                  c: int | None = None, mesh=None) -> list:
     """MSM sum_i s_i * P_i via the windowed bucket method.
 
     points: JacPoint [L, n] (Montgomery limb form). scalars_plain: plain
     16-bit limbs [L, n] for one MSM or [L, k, n] for k scalar sets over the
-    shared table. Returns k host affine points (None = identity)."""
+    shared table. mesh: shard the points over its devices (see
+    msm_pippenger_device). Returns k host affine points (None = identity)."""
     k = int(scalars_plain.shape[1]) if scalars_plain.dim() == 3 else 1
-    pending = msm_pippenger_device(fops, points, scalars_plain, n_bits, c)
+    pending = msm_pippenger_device(fops, points, scalars_plain, n_bits, c,
+                                   mesh)
     return msm_to_host_affine(fops, pending, k)

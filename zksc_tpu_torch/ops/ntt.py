@@ -60,6 +60,37 @@ def _powers(base: int, count: int, p: int) -> list:
     return out
 
 
+def dif_stages(F: LimbField, x, tw_inv: dict, top: int):
+    """DIF butterfly stages of spans top, top/2, ..., 2 over x [L, m] (m a
+    multiple of top): (u, v) -> (u + v, (u - v) * tw). tw_inv[span]: the
+    span's twiddles [L, span/2]."""
+    m = x.shape[-1]
+    length = top
+    while length >= 2:
+        x = x.reshape(F.L, m // length, length)
+        u = x[:, :, : length // 2]
+        v = x[:, :, length // 2:]
+        hi = F.mont_mul(F.sub(u, v), tw_inv[length][:, None, :])
+        x = torch.cat([F.add(u, v), hi], dim=2).reshape(F.L, m)
+        length //= 2
+    return x
+
+
+def dit_stages(F: LimbField, x, tw_fwd: dict, top: int):
+    """DIT butterfly stages of spans 2, 4, ..., top over x [L, m]:
+    (u, v) -> (u + v * tw, u - v * tw)."""
+    m = x.shape[-1]
+    length = 2
+    while length <= top:
+        x = x.reshape(F.L, m // length, length)
+        u = x[:, :, : length // 2]
+        v = x[:, :, length // 2:]
+        vw = F.mont_mul(v, tw_fwd[length][:, None, :])
+        x = torch.cat([F.add(u, vw), F.sub(u, vw)], dim=2).reshape(F.L, m)
+        length *= 2
+    return x
+
+
 class NTTContext:
     """Precomputed twiddle tables + transforms for a fixed power-of-two n,
     with every table on `device`."""
@@ -106,33 +137,12 @@ class NTTContext:
     def dif_inverse(self, evals):
         """evals (natural order) -> coeffs (bit-reversed), includes 1/n
         scale. evals: [L, n] Montgomery form."""
-        F, n = self.F, self.n
-        x = evals
-        length = n
-        while length >= 2:
-            x = x.reshape(F.L, n // length, length)
-            u = x[:, :, : length // 2]
-            v = x[:, :, length // 2:]
-            tw = self._tw_inv[length][:, None, :]
-            hi = F.mont_mul(F.sub(u, v), tw)
-            x = torch.cat([F.add(u, v), hi], dim=2).reshape(F.L, n)
-            length //= 2
-        return F.mont_mul(x, self._ninv)
+        x = dif_stages(self.F, evals, self._tw_inv, self.n)
+        return self.F.mont_mul(x, self._ninv)
 
     def dit_forward(self, coeffs_br):
         """coeffs (bit-reversed) -> evals (natural order)."""
-        F, n = self.F, self.n
-        x = coeffs_br
-        length = 2
-        while length <= n:
-            x = x.reshape(F.L, n // length, length)
-            u = x[:, :, : length // 2]
-            v = x[:, :, length // 2:]
-            tw = self._tw_fwd[length][:, None, :]
-            vw = F.mont_mul(v, tw)
-            x = torch.cat([F.add(u, vw), F.sub(u, vw)], dim=2).reshape(F.L, n)
-            length *= 2
-        return x
+        return dit_stages(self.F, coeffs_br, self._tw_fwd, self.n)
 
     def coset_evals_from_coeffs_br(self, coeffs_br):
         """coeffs (bitrev) -> evaluations on the coset shift*<w> (natural)."""
