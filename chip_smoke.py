@@ -19,9 +19,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      started together) and the g++ build of the witness-tape library, with
      their seconds; then, from ptxas, each kernel instance's registers,
      stack and spill bytes (K3: lane_kernel and split_kernel, each for Fp
-     and Fp2h; K7a blake2s_kernel, K7b circle_layer_kernel<interp, rev>,
-     K7c composition_kernel and composition_finish_kernel, K7d
-     aes_composition_kernel).
+     and Fp2h; K7a blake2s_kernel and blake2s_tree_kernel, K7b
+     circle_layer_kernel<interp, rev>, K7c composition_kernel<offset,
+     points> and composition_finish_kernel, K7d aes_composition_kernel).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -50,17 +50,22 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      x 131,072 keys of that shape gives the stable permutation.
      The stark kernels, each equal to its plain version value for value:
      K7a Blake2s over 2,048 messages of 0, 1, 63, 64, 65 and 129,024 bytes
-     read as the columns of a [words, 2,048] tensor (and equal to hashlib
-     on four of them), and as the pair hash over 2^17 nodes; K7b
+     read as the columns of a [words, 2,048] tensor, by the loose-message
+     kernel and by the tree launch (one launch a Merkle tree), each tree
+     equal to hashlib's layer for layer; the tree over 1-2,048 16-byte
+     rows (FRI's leaves), equal to hashlib's; both launches timed at 1,024
+     x 129,024 B and 32 x 133,120 B beside K7a's chain floor; K7b
      interpolate and evaluate at log N = 3, 6, 8, 10, 11, 16, 20 over 1
      column and over min(4,096, 2^28 / N) columns, with the round trip;
      K7c at M = 1,024 on the chacha20 AIR's index groups with random
      values; at the stark-stwo shapes, K7c on its AIR's groups at M = 32
      and 512 and K7b interpolate [33,280, 16] and evaluate [33,280, 32]; K7d on the AES-128 and AES-256 AIRs' index groups at M =
      2,048 (the 80-byte chunk) and on AES-256's at M = 8,192 (the 16 KiB
-     record), random values and challenges, sigma as the prover's. Then
-     the Merkle crossover: one layer of 4-4,096 node pairs or
-     16-byte leaves by hashlib and by K7a (with its copies), host clock.
+     record), random values and challenges, sigma as the prover's; each
+     K7c line names the launch shape the wrapper picked (composition_plan).
+     Then the Merkle crossover: whole trees of 4-4,096 16-byte leaves or 8-word
+     column leaves by hashlib and by K7a's tree launch (with its copies),
+     host clock.
   4. main path at full size: api.generate_proof("chacha20", ...) twice on
      a 128-byte chunk with the committed artifacts/chacha20 key (45,217
      wires, domain 2^16); api.verify_proof must accept it and reject a
@@ -190,7 +195,10 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      instance replayed through the kernel and its plain version (equal),
      timed and set beside its bound (the larger of integer operations over
      the card's rate and the bytes read once and written once over HBM),
-     then every K7 call of each proof, summed per kernel.
+     then every K7 call of each proof, summed per kernel (K7a's tree
+     launches under K7a); each K7a line adds its chain floor (a message's
+     chained compressions, and a node a layer for a tree, x
+     BLAKE2S_CHAIN_CLOCKS over the SM clock).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
@@ -1492,27 +1500,47 @@ def drive_ladder_branch(reset_counts, counts) -> dict:
 
 STARK_SEED = 20242        # seed of phase 9's inputs and blinding bytes
 K7_REPLACES = {"blake2s": "zksc_tpu/stark/blake2s.py:79",
+               "blake2s_tree": "zksc_tpu/stark/merkle.py:40",
                "circle_layer": "zksc_tpu/stark/circle.py:104",
                "composition": "zksc_tpu/stark/prover.py:236",
                "aes_composition": "zksc_tpu/stark/aes_prover.py:234"}
-# the K7 kernels each stark proof must launch
+# the K7 kernels each stark proof must launch (K7a's tree launch counts as
+# blake2s)
 CHACHA_K7 = ("blake2s", "circle_layer", "composition")
 AES_K7 = ("blake2s", "circle_layer", "aes_composition")
+# the LAUNCHES key of each stark_kernels launcher, and the keys
+K7_LAUNCH_KEY = {"blake2s_tree": "blake2s"}
+K7_KEYS = ("blake2s", "circle_layer", "composition", "aes_composition")
 # integer instructions per Blake2s compression, each issued at the integer
 # rate: a G is 4 IADD3 (a + b + m is one IADD3 on sm_90, c + d another), 4
 # LOP3 (the xors) and 4 SHF / PRMT (the rotates); 10 rounds x 8 G, plus the
 # 8 LOP3 of the feed-forward h ^ v[i] ^ v[i + 8]
 BLAKE2S_OPS = 10 * 8 * 12 + 8
+# K7a's chain floor. One message's compressions chain, so a leaf takes at
+# least its compressions x one compression on one warp. blake2s_kernel's
+# compression loop as built for sm_90a (tools/stark_sass.py --loops, nvcc
+# 12.9) issues 1,056 instructions a compression: LOP3 328, SHF.R.W 320 and
+# IADD3 175 on the integer ALU pipe, IMAD.IADD 157 on the FMA pipe, 76
+# loads, moves and addresses. A sub-partition's pipe takes 16 lanes a clock
+# (64 a clock an SM), so a warp instruction holds it 2 clocks. The
+# dependent chain is 20 half-rounds x 12 operations at the integer pipe's
+# dependent-issue latency, taken as 4 clocks (assumed, not measured).
+BLAKE2S_ALU_OPS, BLAKE2S_FMA_OPS = 328 + 320 + 175, 157
+BLAKE2S_DEP_OPS, INT_DEP_CLOCKS = 20 * 12, 4
+BLAKE2S_CHAIN_CLOCKS = max(2 * BLAKE2S_ALU_OPS, 2 * BLAKE2S_FMA_OPS,
+                           BLAKE2S_DEP_OPS * INT_DEP_CLOCKS)
 # issue slots of an M31 product (a wide multiply, two folds, a select) and
 # of an M31 add or subtract (add, compare, select)
 M31_MUL_OPS, M31_ADD_OPS = 10, 3
-# issue slots of one weighted term, acc[q] += w[q] * c folded once below
-# 2^32 (K7d's add_term, K7c's accumulate), for the four components q, as
-# the SASS of libzksc_stark.so for sm_90a shows them (tools/stark_sass.py,
-# nvcc 12.9): per component IMAD.WIDE.U32, LOP3 (the mask), SHF.R.U64 and
-# SHF.R.U32.HI (the 64-bit shift), IADD3 and IADD3.X (both into acc); K7c
-# adds a VIADD to the product's high word (its c is 64-bit)
-K7D_TERM_OPS, K7C_TERM_OPS = 4 * 6, 4 * 7
+# issue slots of one weighted term for the four components q, as the SASS
+# of libzksc_stark.so for sm_90a shows them (tools/stark_sass.py --loops,
+# nvcc 12.9). K7d's add_term folds each term below 2^32: per component
+# IMAD.WIDE.U32, LOP3 (the mask), SHF.R.U64 and SHF.R.U32.HI (the 64-bit
+# shift), IADD3 and IADD3.X (both into acc). K7c multiply-adds each
+# component into a u64 (one IMAD.WIDE.U32) and folds it once every four
+# terms (lo + 2 hi: SHF.R.U64, SHF.R.U32.HI, two LOP3, IADD3 and IMAD.X,
+# so the four components' folds cost 6 a term): 4 x 1 + 6
+K7D_TERM_OPS, K7C_TERM_OPS = 4 * 6, 4 * 1 + 6
 # M31 products per constraint of each group of the chacha20 AIR
 K7C_PRODUCTS = (1, 0, 1, 1, 1)
 # K7d, per item of each kind: M31 products, M31 adds / subtracts and
@@ -1529,14 +1557,35 @@ def seeded_bytes(seed: int):
     return lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
 
 
+def sm_clock_hz(imad_rate):
+    """The SM clock behind imad_rate (IMAD_PER_CLK_PER_SM a clock an SM)."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    return imad_rate / (IMAD_PER_CLK_PER_SM * props.multi_processor_count)
+
+
+def k7a_chain_ms(name, args, imad_rate):
+    """K7a's chain floor for one call: the compressions of one message (a
+    tree launch: and one node a layer above it, up to the root) x
+    BLAKE2S_CHAIN_CLOCKS over the SM clock. Returns (ms, compressions)."""
+    base, count, length = args[:3]
+    chain = max(1, -(-length // 64))
+    if name == "blake2s_tree":
+        chain += count.bit_length() - 1
+    return chain * BLAKE2S_CHAIN_CLOCKS / sm_clock_hz(imad_rate) * 1e3, chain
+
+
 def k7_bound_ms(name, args, imad_rate):
     """(bound ms, bound_by, work) of one K7 call from its arguments: the
     larger of the operations over the card's integer rate and the bytes
     (inputs read once, outputs written once) over HBM."""
-    if name == "blake2s":
+    if name in ("blake2s", "blake2s_tree"):
         base, count, length = args[:3]
         blocks = count * max(1, -(-length // 64))
         nbytes = count * 4 * (-(-length // 4)) + 32 * count
+        if name == "blake2s_tree":          # the node layers
+            blocks += count - 1
+            nbytes += 32 * (count - 1)
         bound, by = _bound(blocks * BLAKE2S_OPS, nbytes, imad_rate)
         return bound, by, f"{blocks} compressions"
     if name == "circle_layer":
@@ -1577,11 +1626,12 @@ def k7_bound_ms(name, args, imad_rate):
 
 
 def k7_variant(name, args) -> str:
-    if name == "blake2s":
+    if name in ("blake2s", "blake2s_tree"):
         base, count, length, ms, ws = args[:5]
         kind = ("columns" if ms == 1 and ws > 1 else
                 "pairs" if (length, ms) == (64, 16) else "rows")
-        return f"{kind} {count} x {length} B"
+        tree = "tree " if name == "blake2s_tree" else ""
+        return f"{tree}{kind} {count} x {length} B"
     if name == "circle_layer":
         src, interp, rev, log_w = args[:4]
         form = ("interpolate" if interp else "evaluate") + (
@@ -1597,6 +1647,8 @@ def k7_plain(name, args, key_size=None, groups=None):
     from zksc_tpu_torch.stark import blake2s, chacha_air, circle, prover
     if name == "blake2s":
         return blake2s.hash_strided_plain(*args)
+    if name == "blake2s_tree":
+        return blake2s.tree_strided_plain(*args[:5])
     if name == "circle_layer":
         return circle.layer_plain(*args)
     if name == "aes_composition":
@@ -1617,14 +1669,15 @@ def k7d_plain(key_size, vals, perm, idx, off, n, rows, bounds, za, weights,
 
 
 class StarkRecorder:
-    """Wraps stark_kernels' four launchers (the wrapped functions run
+    """Wraps stark_kernels' five launchers (the wrapped functions run
     unchanged); while `window` is set it keeps every call, in order, with
     its arguments (`log`), holding its inputs. key_size: the AES AIR's of
     the recorded proof (for K7d's plain version); groups: K7c's index
     groups of the recorded proof's AIR (default the stark engine's
     chacha20 AIR)."""
 
-    NAMES = ("blake2s", "circle_layer", "composition", "aes_composition")
+    NAMES = ("blake2s", "blake2s_tree", "circle_layer", "composition",
+             "aes_composition")
 
     def __init__(self, key_size=None, groups=None):
         from zksc_tpu_torch.ops import stark_kernels
@@ -1649,48 +1702,114 @@ class StarkRecorder:
             setattr(self.mod, name, self.orig[name])
 
 
-def check_stark_kernels(device):
-    """Phase 3 for K7a, K7b and K7c: each equal to its plain version on the
-    card, value for value (K7a also to hashlib on a sample). Returns the
-    max_abs_err (0)."""
+def hashlib_tree(msgs):
+    """Every layer of the Merkle tree over the byte strings `msgs` by
+    hashlib, as one int32 [2N - 1, 8] array (blake2s_tree's layout)."""
     import hashlib
+    import numpy as np
+    layer = [hashlib.blake2s(m, digest_size=32).digest() for m in msgs]
+    out = list(layer)
+    while len(layer) > 1:
+        layer = [hashlib.blake2s(layer[2 * i] + layer[2 * i + 1],
+                                 digest_size=32).digest()
+                 for i in range(len(layer) // 2)]
+        out += layer
+    return np.frombuffer(b"".join(out), dtype=np.int32).reshape(-1, 8)
+
+
+def check_k7a(device, words, imad_rate):
+    """Phase 3 for K7a: the loose-message kernel and the tree launch over
+    2,048 column leaves of 0-129,024 bytes, each equal to the plain version
+    and the tree to hashlib, layer for layer; the tree over 16-byte rows
+    (FRI's form) at 1-2,048 leaves, equal to the plain version and
+    hashlib; then both timed at the paths' shapes (1,024 x 129,024 B, the
+    stark chunk's trace; 32 x 133,120 B, the stark-stwo chunk's) beside
+    K7a's chain floor. Returns the max_abs_err (0)."""
     import numpy as np
     import torch
     from zksc_tpu_torch.ops import stark_kernels
-    from zksc_tpu_torch.stark import blake2s, chacha_air, circle, prover
+    from zksc_tpu_torch.stark import blake2s
+    err = 0
+    B = 2048
+
+    def equal(label, got, want):
+        e = max_abs_diff([got], [want])
+        if e:
+            raise AssertionError(f"{label}: kernel != plain (max_abs_err {e})")
+        return e
+    for length in (0, 1, 63, 64, 65, 129024):
+        nw = max(1, -(-length // 4))
+        src = words(nw, B)            # message i is column i: strided
+        torch.cuda.synchronize()
+        t = time.time()
+        leaves = blake2s.hash_strided_plain(src, B, length, 1, B)
+        plain = blake2s.tree_from_leaves_plain(leaves)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t) * 1e3
+        host = src.cpu().numpy()
+        want = hashlib_tree([np.ascontiguousarray(host[:, i]).tobytes()[:length]
+                             for i in range(B)])
+        if not np.array_equal(plain.cpu().numpy(), want):
+            raise AssertionError(f"K7a {length} B: plain tree != hashlib")
+        runs = {"loose": lambda: stark_kernels.blake2s(src, B, length, 1, B),
+                "tree": lambda: stark_kernels.blake2s_tree(src, B, length, 1, B)}
+        times = {}
+        for what, run in runs.items():
+            err = max(err, equal(f"K7a {what} {B} x {length} B", run(),
+                                 leaves if what == "loose" else plain))
+            times[what] = cuda_ms(run, reps=5)
+        log(f"phase 3 K7a {B} column leaves x {length} B (word stride {B}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f"; plain {plain_ms:.1f} ms; each equal to the plain version, "
+            f"the tree's {2 * B - 1} digests to hashlib's")
+    for n in (1, 2, 128, 2048):
+        rows = words(n, 4)            # FRI's 16-byte leaves
+        got = stark_kernels.blake2s_tree(rows, n, 16, 4, 1)
+        err = max(err, equal(f"K7a tree rows {n}", got,
+                             blake2s.tree_strided_plain(rows, n, 16, 4, 1)))
+        host = rows.cpu().numpy()
+        if not np.array_equal(got.cpu().numpy(),
+                              hashlib_tree([r.tobytes() for r in host])):
+            raise AssertionError(f"K7a tree rows {n}: != hashlib")
+        log(f"phase 3 K7a tree over {n} 16-byte rows: kernel "
+            f"{cuda_ms(lambda: stark_kernels.blake2s_tree(rows, n, 16, 4, 1), reps=5):.4f}"
+            f" ms, equal to the plain version and to hashlib, layer for layer")
+    for n, length in ((1024, 129024), (32, 133120)):
+        nw = length // 4
+        src = words(nw, n)
+        loose = stark_kernels.blake2s(src, n, length, 1, n)
+        times = {}
+        for what, run in (
+                ("loose", lambda: stark_kernels.blake2s(src, n, length, 1, n)),
+                ("tree", lambda: stark_kernels.blake2s_tree(src, n, length, 1, n))):
+            err = max(err, equal(f"K7a {what} {n} x {length} B",
+                                 run()[:n], loose))
+            times[what] = cuda_ms(run, reps=5)
+        chain, comp = k7a_chain_ms("blake2s", (src, n, length), imad_rate)
+        log(f"phase 3 K7a leaves at {n} x {length} B: loose kernel "
+            f"{times['loose']:.4f} ms, tree launch {times['tree']:.4f} ms (its "
+            f"leaves equal the loose kernel's); chain floor {chain:.4f} ms "
+            f"({comp} compressions x {BLAKE2S_CHAIN_CLOCKS} clocks); "
+            + ", ".join(f"{k} {1e3 * v / comp:.4f} us" for k, v in times.items())
+            + " a compression")
+        del src
+    return err
+
+
+def check_stark_kernels(device, imad_rate):
+    """Phase 3 for K7a, K7b and K7c: each equal to its plain version on the
+    card, value for value (K7a's trees also to hashlib). Returns the
+    max_abs_err (0)."""
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.stark import chacha_air, circle, prover
     rng = np.random.default_rng(STARK_SEED)
     m31 = lambda *s: torch.from_numpy(rng.integers(0, (1 << 31) - 1, s)
                                       .astype(np.int32)).to(device)
     words = lambda *s: torch.from_numpy(rng.integers(-2**31, 2**31, s)
                                         .astype(np.int32)).to(device)
-    err = 0
-    B = 2048
-    for length in (0, 1, 63, 64, 65, 129024):
-        nw = max(1, -(-length // 4))
-        src = words(nw, B)            # message i is column i: strided
-        run = lambda: stark_kernels.blake2s(src, B, length, 1, B)
-        ms, plain_ms, e = compare(
-            f"K7a {B} x {length} B", run,
-            lambda: blake2s.hash_strided_plain(src, B, length, 1, B),
-            lambda r: [r])
-        host, got = src.cpu().numpy(), run().cpu().numpy()
-        for i in (0, 1, B // 2, B - 1):
-            want = hashlib.blake2s(np.ascontiguousarray(host[:, i]).tobytes()
-                                   [:length], digest_size=32).digest()
-            if got[i].tobytes() != want:
-                raise AssertionError(f"K7a {length} B: message {i} != hashlib")
-        log(f"phase 3 K7a blake2s {B} messages x {length} B (word stride "
-            f"{B}): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal, and "
-            f"equal to hashlib on 4 messages")
-        err = max(err, e)
-    cur = words(1 << 18, 8)
-    ms, plain_ms, e = compare(
-        "K7a pairs", lambda: stark_kernels.blake2s(cur, 1 << 17, 64, 16, 1),
-        lambda: blake2s.hash_strided_plain(cur, 1 << 17, 64, 16, 1),
-        lambda r: [r])
-    log(f"phase 3 K7a pair hash over 2^17 nodes: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.1f} ms, equal")
-    err = max(err, e)
+    err = check_k7a(device, words, imad_rate)
     for log_n in (3, 6, 8, 10, 11, 16, 20):
         fft = circle.CircleFFT(log_n)
         for C in (1, min(4096, (1 << 28) >> log_n)):
@@ -1718,7 +1837,9 @@ def check_stark_kernels(device):
         lambda: prover._composition_plain(vals, groups, weights, vn_inv),
         lambda r: [r])
     log(f"phase 3 K7c composition on the chacha20 AIR at M={M} (random "
-        f"values): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
+        f"values; slice, points a thread, threads a block "
+        f"{stark_kernels.composition_plan(M)}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, equal")
     return max(err, e, check_stwo_shapes(device, m31), check_k7d(device, m31))
 
 
@@ -1745,7 +1866,8 @@ def check_stwo_shapes(device, m31):
             lambda r: [r])
         err = max(err, e)
         log(f"phase 3 K7c composition on the stark-stwo AIR at M={M} (random "
-            f"values): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
+            f"values; plan {stark_kernels.composition_plan(M)}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
     for log_n, what in ((4, "interpolate"), (5, "evaluate")):
         fft = circle.CircleFFT(log_n)
         x = m31(air.N_COLS, 1 << log_n)
@@ -1792,34 +1914,32 @@ def check_k7d(device, m31):
 
 
 def sweep_merkle_crossover(device):
-    """Phase 3: one Merkle layer of n hashes by hashlib on the host and by
-    K7a (the launch and a synchronise, host clock), for node pairs (64 B)
-    and FRI's 16-byte leaves (with their copy to the card): where K7a
-    starts to win is merkle.DEVICE_MIN_HASHES (node pairs) and
-    merkle.DEVICE_MIN_LEAVES (FRI's leaves)."""
-    import hashlib
+    """Phase 3: one whole Merkle tree of n leaves by hashlib on the host
+    (merkle._commit_host) and by K7a's tree launch with its copies to the
+    card and back (merkle._tree_device), host clock, for FRI's 16-byte
+    leaves and for the stark-stwo composition tree's 8-word column leaves:
+    where the card starts to win is merkle.DEVICE_MIN_LEAVES."""
     import numpy as np
     import torch
-    from zksc_tpu_torch.stark import blake2s
+    from zksc_tpu_torch.stark import merkle
     rng = np.random.default_rng(STARK_SEED + 1)
     rows = {}
     for k in range(2, 13):
         n = 1 << k
-        for kind, length in (("pairs", 64), ("16-byte leaves", 16)):
-            data = rng.integers(0, 256, (n, length), dtype=np.uint8)
-            reps = max(3, 2048 // n)
-
-            def host():
-                return b"".join(hashlib.blake2s(data[i].tobytes(),
-                                                digest_size=32).digest()
-                                for i in range(n))
-
-            def card():
-                w = torch.from_numpy(data.view(np.int32)).to(device)
-                out = blake2s.hash_strided(w, n, length, length // 4, 1)
-                return out.cpu().numpy().tobytes()
-            if host() != card():
+        for kind in ("16-byte leaves", "8-word column leaves"):
+            if kind == "16-byte leaves":
+                data = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+                host = lambda: merkle._commit_host(data)
+                card = lambda: merkle._tree_device(
+                    torch.from_numpy(data.view(np.int32)).to(device), n, 16, 4, 1)
+            else:
+                cols = torch.from_numpy(rng.integers(0, (1 << 31) - 1, (8, n))
+                                        .astype(np.int32))
+                host = lambda: merkle.commit_columns(cols)
+                card = lambda: merkle._tree_device(cols.to(device), n, 32, 1, n)
+            if host().root != card().root:
                 raise AssertionError(f"crossover sweep: {kind} {n} differ")
+            reps = max(3, 2048 // n)
             times = []
             for fn in (host, card):
                 torch.cuda.synchronize()
@@ -1828,12 +1948,13 @@ def sweep_merkle_crossover(device):
                     fn()
                 times.append((time.perf_counter() - t) / reps * 1e3)
             rows.setdefault(kind, []).append((n, *times))
-            log(f"phase 3 Merkle layer of {n} {kind}: hashlib {times[0]:.4f} "
-                f"ms, K7a with its copies {times[1]:.4f} ms")
+            log(f"phase 3 Merkle tree of {n} {kind}: hashlib {times[0]:.4f} "
+                f"ms, K7a's tree launch with its copies {times[1]:.4f} ms")
     for kind, rs in rows.items():
         wins = [n for n, h, c in rs if c < h]
-        log(f"phase 3 Merkle crossover ({kind}): K7a faster from "
-            f"{min(wins) if wins else 'never'} hashes")
+        log(f"phase 3 Merkle crossover ({kind}): the card faster from "
+            f"{min(wins) if wins else 'never'} leaves (DEVICE_MIN_LEAVES "
+            f"{merkle.DEVICE_MIN_LEAVES})")
 
 
 def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
@@ -1865,7 +1986,7 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
     peak = torch.cuda.max_memory_allocated() - held
     stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
     log(f"phase 9 proof 2 (warm): {secs:.3f} s ({stages}); launches "
-        f"{ {k: launches[k] for k in StarkRecorder.NAMES} }; peak device "
+        f"{ {k: launches[k] for k in K7_KEYS} }; peak device "
         f"memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} GiB held; "
         f"envelope {env.proof_data['proof_size_bytes']} B")
     for k in CHACHA_K7:
@@ -1912,7 +2033,7 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
         peak = torch.cuda.max_memory_allocated() - held
         log(f"phase 9 16 KiB record (256 blocks), proof {i}: {secs:.3f} s ("
             + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
-            + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; peak "
+            + f"); launches { {k: rl[k] for k in K7_KEYS} }; peak "
             f"device memory {peak / 2**30:.3f} GiB")
     if min(rl[k] for k in CHACHA_K7) <= 0:
         raise AssertionError("a K7 kernel was not launched by the record proof")
@@ -1974,7 +2095,7 @@ def drive_stark_aes(api, reset_counts, counts, recs) -> dict:
         peak = torch.cuda.max_memory_allocated() - held
         stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
         log(f"phase 10 {alg} proof 2 (warm): {secs:.3f} s ({stages}); "
-            f"launches { {k: launches[k] for k in StarkRecorder.NAMES} }; peak "
+            f"launches { {k: launches[k] for k in K7_KEYS} }; peak "
             f"device memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} "
             f"GiB held; envelope {env.proof_data['proof_size_bytes']} B")
         for k in AES_K7:
@@ -2026,7 +2147,7 @@ def drive_stark_aes(api, reset_counts, counts, recs) -> dict:
             log(f"phase 10 {alg} 16 KiB record (1,024 blocks), proof {i}: "
                 f"{secs:.3f} s ("
                 + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
-                + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; "
+                + f"); launches { {k: rl[k] for k in K7_KEYS} }; "
                 f"peak device memory {peak / 2**30:.3f} GiB; envelope "
                 f"{proof.to_envelope()['proof_size_bytes']} B")
         if min(rl[k] for k in AES_K7) <= 0:
@@ -2117,7 +2238,7 @@ def drive_stwo(api, reset_counts, counts, rec_api, rec_record) -> dict:
     peak = torch.cuda.max_memory_allocated() - held
     stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
     log(f"phase 11 proof 2 (warm): {secs:.3f} s ({stages}); launches "
-        f"{ {k: launches[k] for k in StarkRecorder.NAMES} }; peak device "
+        f"{ {k: launches[k] for k in K7_KEYS} }; peak device "
         f"memory {peak / 2**30:.3f} GiB above {held / 2**30:.3f} GiB held; "
         f"envelope {env.proof_data['proof_size_bytes']} B")
     for k in CHACHA_K7:
@@ -2168,7 +2289,7 @@ def drive_stwo(api, reset_counts, counts, rec_api, rec_record) -> dict:
         peak = torch.cuda.max_memory_allocated() - held
         log(f"phase 11 16 KiB record (256 blocks), proof {i}: {secs:.3f} s ("
             + " ".join(f"{k}={v:.3f}" for k, v in timings.items())
-            + f"); launches { {k: rl[k] for k in StarkRecorder.NAMES} }; peak "
+            + f"); launches { {k: rl[k] for k in K7_KEYS} }; peak "
             f"device memory {peak / 2**30:.3f} GiB; proof {len(proof)} B")
         if min(rl[k] for k in CHACHA_K7) <= 0:
             raise AssertionError("a K7 kernel was not launched by the stwo "
@@ -3000,7 +3121,7 @@ def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None,
     largest = {}
     for name, args in log_calls:
         key = (name, k7_variant(name, args))
-        size = args[0].numel() * (args[2] if name == "blake2s" else 1)
+        size = args[0].numel() * (args[2] if name.startswith("blake2s") else 1)
         if key not in largest or size > largest[key][0]:
             largest[key] = (size, args)
     rows = []
@@ -3013,20 +3134,27 @@ def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None,
                                     lambda r: [r])
         paced = cuda_ms(run, reps=3, paced=True)
         bound, by, work = k7_bound_ms(name, args, imad_rate)
+        row = {"name": name, "path": path, "variant": variant,
+               "ms": ms, "paced_ms": paced, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        chain = ""
+        if name.startswith("blake2s"):
+            floor, comp = k7a_chain_ms(name, args, imad_rate)
+            chain = (f", chain floor {floor:.4f} ms ({comp} chained "
+                     f"compressions)")
         log(f"[{path}] {name} {variant}: kernel {ms:.4f} ms ({paced:.4f} ms "
             f"paced by the host), plain {plain_ms:.2f} ms, bound {bound:.4f} "
-            f"ms ({by}; {work}), max_abs_err={err}")
-        rows.append({"name": name, "path": path, "variant": variant,
-                     "ms": ms, "paced_ms": paced, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "max_abs_err": err})
+            f"ms ({by}; {work}){chain}, max_abs_err={err}")
+        rows.append(row)
     tot = {}
     for name, args in log_calls:
         kern = getattr(stark_kernels, name)
-        t = tot.setdefault(name, {"launches": 0, "ms": 0.0, "paced_ms": 0.0,
-                                  "bound_ms": 0.0})
-        before = stark_kernels.LAUNCHES[name]
+        key = K7_LAUNCH_KEY.get(name, name)     # the tree launch under K7a
+        t = tot.setdefault(key, {"launches": 0, "ms": 0.0, "paced_ms": 0.0,
+                                 "bound_ms": 0.0})
+        before = stark_kernels.LAUNCHES[key]
         kern(*args)
-        t["launches"] += stark_kernels.LAUNCHES[name] - before
+        t["launches"] += stark_kernels.LAUNCHES[key] - before
         t["ms"] += cuda_ms(lambda: kern(*args), reps=2)
         t["paced_ms"] += cuda_ms(lambda: kern(*args), reps=2, paced=True)
         t["bound_ms"] += k7_bound_ms(name, args, imad_rate)[0]
@@ -3066,14 +3194,18 @@ def stark_kernel_entries(rows, per_proof, launches, err):
     {path: counts}."""
     entries = []
     for name in StarkRecorder.NAMES:
-        mine = [r for r in rows if r["name"] == name]
+        if name in K7_LAUNCH_KEY:               # listed under its kernel's entry
+            continue
+        mine = [r for r in rows
+                if K7_LAUNCH_KEY.get(r["name"], r["name"]) == name]
         path = K7_MAIN_PATH[name]
         main = max((r for r in mine if r["path"] == path),
                    key=lambda r: r["bound_ms"])
         entries.append({
             "name": name, "route": "cuda",
             "source": "zksc_tpu_torch/csrc/stark_kernels.cu",
-            "replaces": K7_REPLACES[name], "launches": launches[path][name],
+            "replaces": K7_REPLACES[main["name"]],
+            "launches": launches[path][name],
             "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "path": main["path"], "shape": main["variant"],
@@ -3183,7 +3315,7 @@ def main(argv) -> int:
     k3_err, k3_plain_ms = check_ladder(g1a, g2h, imad_rate)
     err = max(err, k3_err, check_wide_windows(g1a, g2h))
     check_stable_sort()
-    err = max(err, check_stark_kernels(device))
+    err = max(err, check_stark_kernels(device, imad_rate))
     sweep_merkle_crossover(device)
     log(f"phase 3 kernel checks passed (max_abs_err {err})")
     del g1a, g1b, g2h

@@ -74,3 +74,24 @@ def test_strided_sources(length):
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         stark_kernels.blake2s(torch.zeros(16, dtype=torch.int32), 1, 64, 16, 1)
+
+
+@pytest.mark.parametrize("n, words", [(16, 5), (1, 3), (8, 0)])
+def test_tree_plain_vs_jax_commit(n, words):
+    """The plain version of K7a's tree launch over column leaves (leaf i is
+    column i of an int32 [words, n] tensor) gives the JAX package's
+    merkle.commit of the transposed rows, every layer, back to back."""
+    from zksc_tpu.stark import merkle as jm
+    cols = np.random.default_rng(n + words).integers(
+        -2**31, 2**31, (max(words, 1), n)).astype(np.int32)
+    got = tb.tree_strided(torch.from_numpy(cols), n, 4 * words, 1, n).numpy()
+    rows = np.ascontiguousarray(cols.T).view(np.uint8)[:, :4 * words]
+    want = np.concatenate(jm.commit(rows).layers).view(np.int32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_tree_wrapper_refuses_cpu_tensors_and_ragged_trees():
+    with pytest.raises(ValueError, match="CUDA"):
+        stark_kernels.blake2s_tree(torch.zeros(64, dtype=torch.int32), 4, 16, 4, 1)
+    with pytest.raises(ValueError, match="power of two"):
+        tb.tree_strided_plain(torch.zeros(64, dtype=torch.int32), 3, 16, 4, 1)

@@ -14,11 +14,12 @@ on CPU tensors, and every output is held to the kernel's plain PyTorch
 version limb for limb, on crafted lanes (chip_smoke.craft: identity,
 doubling, negation, affine and Jacobian Q in one warp) at lane counts that
 leave a ragged last block and an unpaired warp tail for the two-thread G2
-instances. The STARK kernels (K7a Blake2s from strided sources, K7b's four
-circle-FFT layer forms, K7c's sliced composition over the chacha20 AIR's
-index groups and its second launch, a 2-D grid, and K7d's over the AES AIR
-with its sigma gather) are held to their plain versions and K7a to
-hashlib. This checks the kernels' indexing, layouts,
+instances. The STARK kernels (K7a Blake2s from strided sources and its
+one-launch Merkle tree, whose last block takes a ticket by an atomic add
+that the shim runs under a mutex; K7b's four circle-FFT layer forms; K7c's
+sliced composition over the chacha20 AIR's index groups at each launch
+shape, and its summing launch on 2-D blocks; K7d's over the AES AIR with
+its sigma gather) are held to their plain versions and K7a to hashlib. This checks the kernels' indexing, layouts,
 branches and the lane-pair protocol; the card's own compiler and timing are
 chip_smoke.py's."""
 import ctypes
@@ -44,11 +45,13 @@ from zksc_tpu_torch.stark import prover as stark_prover  # noqa: E402
 
 SHIM = r'''
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <functional>
 #include <map>
 #include <memory>
@@ -63,6 +66,8 @@ SHIM = r'''
 #define __noinline__
 #define __launch_bounds__(...)
 #define __shared__ static
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3e { unsigned x, y, z; };
 inline thread_local uint3e threadIdx, blockIdx;
@@ -72,6 +77,7 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
 template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
 struct BlockCtx {
   std::unique_ptr<std::barrier<>> all;
@@ -127,18 +133,30 @@ inline bool __any_sync(unsigned mask, bool p) {
 }
 inline char* dyn_smem() { return g_blk->smem.data(); }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
+// device-scope atomics and fences: one mutex; blocks run one after another
+inline std::mutex g_atomic_mu;
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> lock(g_atomic_mu);
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <class T> inline T __ldcg(const T* p) { return *(const volatile T*)p; }
 inline void zk_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> body) {
   gridDim = grid; blockDim = block;
+  const unsigned n = block.x * block.y;
   for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned b = 0; b < grid.x; ++b) {
     BlockCtx ctx;
-    ctx.all = std::make_unique<std::barrier<>>(block.x);
-    for (unsigned i = 0; i < block.x / 2; ++i) ctx.pairs.push_back(std::make_unique<std::barrier<>>(2));
-    ctx.slot.resize(block.x);
+    ctx.all = std::make_unique<std::barrier<>>(n);
+    for (unsigned i = 0; i < n / 2; ++i) ctx.pairs.push_back(std::make_unique<std::barrier<>>(2));
+    ctx.slot.resize(n);
     ctx.smem.resize(smem + 16);
     std::vector<std::thread> th;
-    for (unsigned t = 0; t < block.x; ++t)
-      th.emplace_back([&, t, b, by] { threadIdx = {t, 0, 0}; blockIdx = {b, by, 0}; g_blk = &ctx; body(); });
+    for (unsigned t = 0; t < n; ++t)
+      th.emplace_back([&, t, b, by] {
+        threadIdx = {t % block.x, t / block.x, 0}; blockIdx = {b, by, 0}; g_blk = &ctx; body(); });
     for (auto& x : th) x.join();
   }
 }
@@ -412,6 +430,142 @@ def test_k7a_emulated(stark_emu):
     assert torch.equal(got, blake2s.hash_strided_plain(layer, 8, 64, 16, 1))
 
 
+def _hashlib_tree(msgs):
+    """Every layer of the Merkle tree over the byte strings `msgs`, by
+    hashlib: [N, 32] uint8 arrays, leaves first."""
+    import hashlib
+    import numpy as np
+    layer = [hashlib.blake2s(m, digest_size=32).digest() for m in msgs]
+    layers = [layer]
+    while len(layer) > 1:
+        layer = [hashlib.blake2s(layer[2 * i] + layer[2 * i + 1],
+                                 digest_size=32).digest()
+                 for i in range(len(layer) // 2)]
+        layers.append(layer)
+    return [np.frombuffer(b"".join(x), dtype=np.uint8).reshape(-1, 32)
+            for x in layers]
+
+
+def _tree_layers(flat, n):
+    import numpy as np
+    flat = flat.numpy().view(np.uint8)
+    out, at = [], 0
+    while n >= 1:
+        out.append(flat[at:at + n])
+        at, n = at + n, n // 2
+    return out
+
+
+@pytest.mark.parametrize("n_leaves, words", [(256, 80), (256, 1), (8, 17),
+                                             (64, 0)])
+def test_k7a_tree_columns_emulated(stark_emu, n_leaves, words):
+    """K7a's tree launch over the columns of an int32 [words, N] tensor
+    (the trace commitment's form): 2^8 leaves of 320 bytes (5 message
+    blocks; 8 blocks of 32 leaves, the top layers by the last block) and
+    of 4 bytes, 8 leaves (one block of 8), 64 empty leaves. Every layer
+    equals hashlib's and the plain version's."""
+    import numpy as np
+    rng = np.random.default_rng(n_leaves + words)
+    cols = torch.from_numpy(rng.integers(-2**31, 2**31, (max(words, 1), n_leaves),
+                                         dtype=np.int64).astype(np.int32))
+    length = 4 * words
+    got = stark_emu.blake2s_tree(cols, n_leaves, length, 1, n_leaves)
+    assert torch.equal(got, blake2s.tree_strided_plain(cols, n_leaves, length,
+                                                       1, n_leaves))
+    msgs = [np.ascontiguousarray(cols.numpy()[:, i]).tobytes()[:length]
+            for i in range(n_leaves)]
+    for a, b in zip(_tree_layers(got, n_leaves), _hashlib_tree(msgs),
+                    strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_leaves", [256, 2, 1])
+def test_k7a_tree_rows_emulated(stark_emu, n_leaves):
+    """K7a's tree launch over 16-byte rows (FRI's leaves: message stride
+    4, word stride 1): 2^8 leaves, 2 and 1. Every layer equals hashlib's,
+    also when the launch finds its ticket non-zero (as a launch that
+    stopped before its last block would leave it): the ticket is zeroed
+    before each launch."""
+    import numpy as np
+    rows = np.random.default_rng(n_leaves).integers(0, 256, (n_leaves, 16),
+                                                    dtype=np.uint8)
+    words = torch.from_numpy(rows.view(np.int32).copy())
+    for stale in (5, -1):
+        stark_emu._ticket(words).fill_(stale)
+        got = stark_emu.blake2s_tree(words, n_leaves, 16, 4, 1)
+        for a, b in zip(_tree_layers(got, n_leaves),
+                        _hashlib_tree([r.tobytes() for r in rows]), strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_k7a_tree_through_merkle(stark_emu, monkeypatch):
+    """merkle.commit_columns and merkle.commit on the device path (the
+    tree launch, one copy of its layers) give the host path's tree, layer
+    for layer."""
+    import numpy as np
+    from zksc_tpu_torch.stark import merkle
+    monkeypatch.setattr(merkle, "tree_strided", lambda *a: stark_emu.blake2s_tree(*a))
+    rng = np.random.default_rng(9)
+    cols = torch.from_numpy(rng.integers(0, 2**31 - 1, (6, 64)).astype(np.int32))
+    want = merkle.commit_columns(cols)
+    got = merkle._tree_device(cols, 64, 24, 1, 64)
+    leaves = rng.integers(0, 256, (128, 16), dtype=np.uint8)
+    for g, w in ((got, want), (merkle._tree_device(
+            torch.from_numpy(leaves.view(np.int32).copy()), 128, 16, 4, 1),
+            merkle.commit(leaves, device="cpu"))):
+        assert len(g.layers) == len(w.layers)
+        for a, b in zip(g.layers, w.layers):
+            np.testing.assert_array_equal(a, b)
+
+
+def _cut_groups(groups, keep):
+    """The first keep[g] constraints of each of K7c's index groups."""
+    out = {}
+    for (name, fields), k in zip(stark_kernels.GROUP_FIELDS, keep):
+        g = groups[name]
+        out[name] = g[:k] if fields == (None,) else {f: g[f][:k] for f in g}
+    return out
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["off32", "off64"])
+@pytest.mark.parametrize("M", [32, 64, 512])
+def test_k7c_emulated_plans(stark_emu, monkeypatch, M, wide):
+    """K7c at each launch shape composition_plan picks: M = 32 (one point
+    a thread, a warp tile, slices of 32), 64 (two points a thread, slices
+    of 32) and 512 (four points, 128-thread tiles, slices of 64), on 235
+    constraints of the chacha20 AIR's groups, so the last slice is ragged
+    and slices straddle groups; with 32-bit gather offsets and with the
+    64-bit ones (WIDE_OFFSETS_FROM lowered to 0). Equal to
+    _composition_plain."""
+    import numpy as np
+    if wide:
+        monkeypatch.setattr(stark_kernels, "WIDE_OFFSETS_FROM", 0)
+    n_comm, groups = chacha_air.layout()
+    groups = _cut_groups(groups, (70, 50, 45, 40, 30))
+    rng = np.random.default_rng(M)
+    R = n_comm + chacha_air.N_PUBLIC + 1
+    rand = lambda *shape: torch.from_numpy(
+        rng.integers(0, (1 << 31) - 1, shape).astype(np.int32))
+    vals, vn_inv = rand(R, M), rand(M)
+    weights = rand(235, 4)
+    idx, off, n = stark_kernels.pack_groups(groups)
+    got = stark_emu.composition(vals, torch.from_numpy(idx), off, n, weights,
+                                vn_inv)
+    assert torch.equal(got, stark_prover._composition_plain(vals, groups,
+                                                            weights, vn_inv))
+
+
+def test_k7c_plan_by_shape():
+    """composition_plan at the paths' M: the stwo chunk's 32 points run one
+    point a thread in a warp tile and slices of 32; M = 512-2,048 four
+    points a thread in 128-thread tiles and slices of 64."""
+    plan = stark_kernels.composition_plan
+    assert plan(32) == (32, 1, 32)
+    assert plan(64) == (32, 2, 32)
+    for M in (512, 1024, 2048, 8192):
+        assert plan(M) == (64, 4, 128)
+
+
 @pytest.mark.parametrize("log_n", [2, 3, 5])
 def test_k7b_emulated(stark_emu, log_n):
     """K7b: interpolate and evaluate as log N layer launches (the y-fold and
@@ -426,9 +580,9 @@ def test_k7b_emulated(stark_emu, log_n):
 
 
 def test_k7c_emulated(stark_emu):
-    """K7c on the chacha20 AIR's index groups (53,504 constraints in 418
-    slices) at M = 32 random values, weights and V_N inverses: equal to
-    _composition_plain."""
+    """K7c on the chacha20 AIR's index groups (53,504 constraints in 1,672
+    slices of 32) at M = 32 random values, weights and V_N inverses: equal
+    to _composition_plain."""
     import numpy as np
     n_comm, groups = chacha_air.layout()
     rng = np.random.default_rng(3)
@@ -445,8 +599,8 @@ def test_k7c_emulated(stark_emu):
 
 
 def test_k7c_emulated_stwo_layout(stark_emu):
-    """K7c on the stark-stwo AIR's index groups (54,784 constraints in 428
-    slices, an empty addx group, the carry into bit 0 read from the zero
+    """K7c on the stark-stwo AIR's index groups (54,784 constraints in
+    1,712 slices of 32, an empty addx group, the carry into bit 0 read from the zero
     row) at M = 32, the 128-byte chunk's: equal to _composition_plain."""
     import numpy as np
     from zksc_tpu_torch.stark.stwo_compat import air

@@ -2,12 +2,14 @@
 
 Builds zksc_tpu_torch/build/libzksc_stark.so if needed, runs ``cuobjdump
 -sass`` on it, and prints, for every kernel whose name holds one of the
-given substrings, its instruction count and opcode histogram. With --out
-the kernels' full SASS is written there too. The instruction counts that
-chip_smoke.py's K7 bounds use per constraint term come from reading this
+given substrings, its instruction count and opcode histogram; with
+--loops also each loop body's (the instructions from a backward branch's
+target to the branch: K7a's compression loop). With --out the kernels' full
+SASS is written there too. The instruction counts that chip_smoke.py's K7
+bounds use per constraint term and per compression come from reading this
 output. Needs nvcc and cuobjdump (the CUDA toolkit):
 
-    python tools/stark_sass.py [--kernels composition] [--out FILE]
+    python tools/stark_sass.py [--kernels composition] [--loops] [--out FILE]
 """
 import argparse
 import collections
@@ -39,10 +41,25 @@ def opcode(line: str) -> str:
     return body.split()[0].rstrip(";") if body else ""
 
 
+def loops(ins: list) -> list:
+    """[(start, end, body)] for each backward branch in a kernel's
+    instruction lines: body runs from the branch target to the branch."""
+    addr = [int(re.match(r"/\*([0-9a-f]{4,})\*/", i).group(1), 16) for i in ins]
+    out = []
+    for k, line in enumerate(ins):
+        m = re.search(r"\bBRA\s+(?:`\()?\.?L?\w*?(0x[0-9a-f]+)", line)
+        if m and int(m.group(1), 16) < addr[k]:
+            start = addr.index(int(m.group(1), 16))
+            out.append((addr[start], addr[k], ins[start:k + 1]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="composition",
                     help="comma-separated substrings of kernel names")
+    ap.add_argument("--loops", action="store_true",
+                    help="also print each loop body's opcode histogram")
     ap.add_argument("--out", help="write the selected kernels' SASS here")
     a = ap.parse_args()
     from zksc_tpu_torch.ops import cuda_build
@@ -59,6 +76,10 @@ def main() -> int:
         hist = collections.Counter(opcode(i) for i in ins)
         print(f"{name}: {len(ins)} instructions")
         print("  " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
+        for start, end, body in (loops(ins) if a.loops else []):
+            hist = collections.Counter(opcode(i) for i in body)
+            print(f"  loop {start:#x}-{end:#x}: {len(body)} instructions")
+            print("    " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

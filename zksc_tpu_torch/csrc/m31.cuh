@@ -13,11 +13,12 @@ namespace zksc {
 constexpr uint32_t kP31 = 0x7FFFFFFFu;
 constexpr uint32_t kInv2 = 0x40000000u;   // 2^-1 mod p = (p + 1) / 2
 
-// any uint64 -> [0, p): two folds leave at most p + 1, then one subtract
+// any uint64 -> [0, p): a fold leaves x < 2^34, a second (in 32 bits) at
+// most p + 7, then one subtract
 __device__ __forceinline__ uint32_t m31_red(uint64_t x) {
   x = (x & kP31) + (x >> 31);
-  x = (x & kP31) + (x >> 31);
-  return (uint32_t)(x >= kP31 ? x - kP31 : x);
+  const uint32_t y = ((uint32_t)x & kP31) + (uint32_t)(x >> 31);
+  return y >= kP31 ? y - kP31 : y;
 }
 
 __device__ __forceinline__ uint32_t m31_add(uint32_t a, uint32_t b) {

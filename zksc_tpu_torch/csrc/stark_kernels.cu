@@ -5,18 +5,26 @@
 // eager fuses nothing (a Blake2s compression is ~1,100 eager ops, the
 // composition's temporaries would be 0.4-0.9 GB each), so the port writes:
 //
-// K7a blake2s -- zksc_tpu/stark/blake2s.py:blake2s / blake2s_pair: Blake2s-256
-//    (RFC 7693) of `count` messages of one byte length, one thread per
-//    message, the state in registers and each message word read once. The
-//    source is strided: word j of message i is base[i * msg_stride + j *
-//    word_stride], so the trace commitment hashes the columns of the [C, M]
-//    LDE in place (msg_stride 1, word_stride M: a warp's threads read
-//    neighbouring words) and a Merkle node layer reads cur[2i] || cur[2i+1]
-//    (msg_stride 16) with no concatenation. Bound: integer operations (~1,120
-//    a compression) or the bytes read, whichever is larger; a leaf's blocks
-//    chain, so a launch has only as many threads as messages (1,024-2,048 for
-//    a trace commitment), and the next block's words are loaded while the
-//    current one is compressed.
+// K7a blake2s -- zksc_tpu/stark/blake2s.py:blake2s / blake2s_pair and
+//    zksc_tpu/stark/merkle.py:commit: Blake2s-256 (RFC 7693), one thread
+//    a message, the state in registers, the next block's words loaded while
+//    the current one is compressed. Two launches: blake2s_kernel hashes
+//    loose messages from a strided source (word j of message i at
+//    base[i * msg_stride + j * word_stride]); blake2s_tree_kernel builds a
+//    whole Merkle tree in one launch, every node layer included. Its
+//    blocks take 32 leaves each (1,024 leaves spread over 32 SMs), hash
+//    them, then their subtree's node layers in shared memory, writing every
+//    layer to its slice of one buffer; the last block to finish (an atomic ticket after
+//    a fence) hashes the top layers to the root. The trace leaves are the
+//    columns of the [C, M] LDE, read in place (a warp's threads read
+//    neighbouring words). Bound: a leaf's compressions chain, so the floor
+//    is one message's compressions x one compression on one warp -- 823
+//    ALU-pipe instructions at 2 clocks each (16-lane pipes), 1,646 clocks;
+//    the loop issues ~1,050 a compression and runs at ~90% of that floor.
+//    The roofline bound (every compression at the card's integer rate) is
+//    8-500x lower and out of reach with 32-2,048 leaves. (A producer warp
+//    staging the words into a shared-memory ring by cp.async.bulk was
+//    measured 1-3% slower than these direct loads, PERF.md.)
 // K7b circle_layer -- zksc_tpu/stark/circle.py:CircleFFT.interpolate /
 //    evaluate: one fold layer of the circle FFT over a batch of C columns of
 //    N values (the y-fold or an x-fold through pi(x) = 2x^2 - 1), one thread
@@ -24,13 +32,20 @@
 //    launch per layer. Bound: bytes (each layer reads and writes the batch).
 // K7c composition -- zksc_tpu/stark/prover.py:_composition: for every LDE
 //    point x, sum_k w_k * c_k(x) over the AIR's constraints (bool, add, addx,
-//    xor, eq, in that order) with QM31 weights w_k, then times V_N(x)^-1. A
-//    2-D grid of point tiles x constraint slices: each thread gathers
-//    vals[row, x] (x contiguous across the warp, so the gathers are
-//    coalesced) and keeps four partial sums for its point over its slice;
-//    a second launch adds the slices' partials and multiplies by vn_inv.
-//    Addition mod p is exact, so any summation order gives the reference's
-//    values. Bound: the gathered bytes.
+//    xor, eq, in that order) with QM31 weights w_k, then times V_N(x)^-1.
+//    A 2-D grid of point tiles x slices of up to 128
+//    constraints: each block first copies its slice's row indices and
+//    weights to shared memory, so a value is one shared read and one
+//    global gather (32-bit offsets while R * M < 2^31); a thread takes
+//    one, two or four neighbouring points (up to 16-byte gathers) and issues
+//    the gathers of four constraints before it uses them; each component
+//    accumulates as a 64-bit multiply-add, folded once every four terms.
+//    The wrapper picks the shape by M (composition_plan): at M = 32 one-warp
+//    tiles and slices of 32 constraints, ~1,700 blocks. A second launch
+//    adds the slices' partials (32 rows of threads a block of outputs) and
+//    multiplies by vn_inv. Addition mod p is exact, so any
+//    summation order gives the reference's values. Bound: integer
+//    operations, or the bytes if the gathers miss the caches.
 // K7d aes_composition -- zksc_tpu/stark/aes_prover.py:_composition: K7c's
 //    form for the AES-CTR LogUp AIR. An "item" is one bool, const, xor, mix
 //    or eq constraint, one lookup instance (its four QM31 constraints, with
@@ -116,51 +131,149 @@ __device__ __forceinline__ void blake2s_compress(uint32_t h[8], const uint32_t m
 #undef ZK_ROUND
 #undef ZK_G
 
-// Message i: `len` bytes, little-endian in the words src[j * ws], src =
-// base + i * ms. Every block but the last is full; the last block holds
+__device__ __forceinline__ void blake2s_init(uint32_t h[8]) {
+  h[0] = 0x6A09E667u ^ 0x01010020u;       // parameter block: 32-byte digest
+  h[1] = 0xBB67AE85u, h[2] = 0x3C6EF372u, h[3] = 0xA54FF53Au;
+  h[4] = 0x510E527Fu, h[5] = 0x9B05688Cu, h[6] = 0x1F83D9ABu, h[7] = 0x5BE0CD19u;
+}
+
+// One message of `len` bytes, little-endian in the words src[j * ws], read
+// by this thread. Every block but the last is full; the last block holds
 // the rest of the message, zero-padded (bytes past `len` of its last word
 // are masked), and t counts bytes, as RFC 7693 has it. An empty message is
-// one zero block with t = 0.
+// one zero block with t = 0. The next block's words are loaded while the
+// current one is compressed.
+__device__ __forceinline__ void blake2s_message(const uint32_t* __restrict__ src, long long len,
+                                                long long ws, uint32_t h[8]) {
+  const long long n_blocks = len > 0 ? (len + 63) / 64 : 1;
+  const long long n_words = (len + 3) / 4;
+  blake2s_init(h);
+  uint32_t m[16], nxt[16];
+  if (n_blocks > 1) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) nxt[j] = src[j * ws];
+  }
+  for (long long blk = 0; blk + 1 < n_blocks; ++blk) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) m[j] = nxt[j];
+    if (blk + 2 < n_blocks) {                 // the next full block, in flight
+      const uint32_t* nb = src + (blk + 1) * 16 * ws;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) nxt[j] = nb[j * ws];
+    }
+    blake2s_compress(h, m, (unsigned long long)(blk + 1) * 64, false);
+  }
+  const long long w0 = (n_blocks - 1) * 16;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const long long w = w0 + j;
+    uint32_t x = 0;
+    if (w < n_words) {
+      x = src[w * ws];
+      const long long tail = len - 4 * w;     // bytes of this word in the message
+      if (tail < 4) x &= (1u << (8 * tail)) - 1u;
+    }
+    m[j] = x;
+  }
+  blake2s_compress(h, m, (unsigned long long)len, true);
+}
+
+// K7a for loose messages: message i at src = base + i * ms, one thread each.
 __global__ void __launch_bounds__(kStarkThreads)
     blake2s_kernel(const uint32_t* __restrict__ base, long long count, long long len,
                    long long ms, long long ws, uint32_t* __restrict__ out) {
-  const long long n_blocks = len > 0 ? (len + 63) / 64 : 1;
-  const long long n_words = (len + 3) / 4;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += (long long)gridDim.x * blockDim.x) {
-    const uint32_t* src = base + i * ms;
-    uint32_t h[8] = {0x6A09E667u ^ 0x01010020u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
-                     0x510E527Fu, 0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u};
-    uint32_t m[16], nxt[16];
-    if (n_blocks > 1) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) nxt[j] = src[j * ws];
-    }
-    for (long long blk = 0; blk + 1 < n_blocks; ++blk) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) m[j] = nxt[j];
-      if (blk + 2 < n_blocks) {               // the next full block, in flight
-        const uint32_t* nb = src + (blk + 1) * 16 * ws;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) nxt[j] = nb[j * ws];
-      }
-      blake2s_compress(h, m, (unsigned long long)(blk + 1) * 64, false);
-    }
-    const long long w0 = (n_blocks - 1) * 16;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const long long w = w0 + j;
-      uint32_t x = 0;
-      if (w < n_words) {
-        x = src[w * ws];
-        const long long tail = len - 4 * w;   // bytes of this word in the message
-        if (tail < 4) x &= (1u << (8 * tail)) - 1u;
-      }
-      m[j] = x;
-    }
-    blake2s_compress(h, m, (unsigned long long)len, true);
+    uint32_t h[8];
+    blake2s_message(base + i * ms, len, ws, h);
 #pragma unroll
     for (int k = 0; k < 8; ++k) out[i * 8 + k] = h[k];
+  }
+}
+
+// ---- K7a's tree launch
+
+constexpr int kTreeLeaves = 32;   // leaves a block, at most: one warp hashes them
+
+// first digest of tree layer `level` (N leaves) in the output: the layers
+// back to back, leaves first
+__device__ __forceinline__ long long layer_at(long long N, int level) {
+  return 2 * (N - (N >> level));
+}
+
+__device__ __forceinline__ void store_digest(uint32_t* __restrict__ out, long long node,
+                                             const uint32_t h[8]) {
+  uint4* o = reinterpret_cast<uint4*>(out + node * 8);
+  o[0] = uint4{h[0], h[1], h[2], h[3]};
+  o[1] = uint4{h[4], h[5], h[6], h[7]};
+}
+
+__device__ __forceinline__ void blake2s_node(const uint32_t m[16], uint32_t h[8]) {
+  blake2s_init(h);
+  blake2s_compress(h, m, 64ull, true);
+}
+
+// A whole Merkle tree in one launch. Block b takes leaves [b L, b L + L)
+// (L = min(N, 32), one thread a leaf), hashes them, then its subtree's node
+// layers in shared memory; every layer goes to its slice of `out` ([2N - 1,
+// 8] words). The last block to finish (a ticket taken after a fence) hashes
+// the layers above the block roots, up to the root. The ticket is zeroed on
+// the stream before each launch (zksc_blake2s_tree), so no launch depends on
+// how an earlier one ended.
+__global__ void __launch_bounds__(kStarkThreads)
+    blake2s_tree_kernel(const uint32_t* __restrict__ base, long long N, int L, long long len,
+                        long long ms, long long ws, uint32_t* __restrict__ out,
+                        unsigned* __restrict__ ticket) {
+  __shared__ uint32_t dig[8][kTreeLeaves];
+  __shared__ unsigned last;
+  const int t = threadIdx.x;
+  const long long x0 = (long long)blockIdx.x * L;
+  uint32_t h[8];
+  if (t < L) {
+    blake2s_message(base + (x0 + t) * ms, len, ws, h);
+    store_digest(out, x0 + t, h);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dig[k][t] = h[k];
+  }
+  __syncthreads();
+  int level = 1;
+  for (int n = L >> 1; n >= 1; n >>= 1, ++level) {     // the block's subtree
+    uint32_t m[16];
+    const bool act = t < n;
+    if (act) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        m[k] = dig[k][2 * t];
+        m[8 + k] = dig[k][2 * t + 1];
+      }
+      blake2s_node(m, h);
+    }
+    __syncthreads();
+    if (act) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) dig[k][t] = h[k];
+      store_digest(out, layer_at(N, level) + (x0 >> level) + t, h);
+    }
+    __syncthreads();
+  }
+  const long long G = N / L;                  // blocks, and block roots
+  if (G == 1) return;
+  __threadfence();                            // this block's layers, then its ticket
+  __syncthreads();
+  if (t == 0) last = atomicAdd(ticket, 1u) == (unsigned)(G - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (long long n = G >> 1; n >= 1; n >>= 1, ++level) {  // the top layers
+    const long long src = layer_at(N, level - 1), dst = layer_at(N, level);
+    for (long long i = t; i < n; i += blockDim.x) {
+      uint32_t m[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) m[k] = __ldcg(out + (src + 2 * i) * 8 + k);
+      blake2s_node(m, h);
+      store_digest(out, dst + i, h);
+    }
+    __syncthreads();
   }
 }
 
@@ -204,7 +317,9 @@ __global__ void __launch_bounds__(kStarkThreads)
 
 // ------------------------------------------------------------------ K7c
 
-constexpr int kGroups = 5;   // bool, add, addx, xor, eq
+constexpr int kGroups = 5;          // bool, add, addx, xor, eq
+constexpr int kMaxFields = 6;       // index fields of a constraint, at most (addx)
+constexpr int kSliceMax = 128;      // constraints a slice holds, at most
 
 struct Groups {
   const int32_t* idx;        // packed: group g's field f of constraint i at
@@ -212,89 +327,198 @@ struct Groups {
   long long n[kGroups];
 };
 
-// c_k(x) of constraint i of group G, from the gathered rows (all canonical)
+__host__ __device__ constexpr int group_fields(int g) {
+  return g == 0 ? 1 : g == 1 ? 5 : g == 2 ? 6 : 3;
+}
+
+// c_k(x) of a constraint of group G from its gathered values f (canonical)
 template <int G>
-__device__ __forceinline__ uint32_t constraint(const uint32_t* __restrict__ vals, long long M,
-                                               long long x, const Groups& gr, long long i) {
-  const int32_t* ix = gr.idx + gr.off[G] + i;
-  const long long n = gr.n[G];
-  auto at = [&](int f) -> uint64_t { return vals[(long long)ix[f * n] * M + x]; };
+__device__ __forceinline__ uint32_t constraint(const uint32_t* f) {
   constexpr uint64_t P = kP31;
   if (G == 0) {                           // b (1 - b)
-    const uint64_t b = at(0);
+    const uint64_t b = f[0];
     return m31_red(b * (1 + P - b));
   }
   if (G == 1) {                           // R + 2C - (A + B + Cin)
-    return m31_red(at(2) + 2 * at(3) + 3 * P - at(0) - at(1) - at(4));
+    return m31_red((uint64_t)f[2] + 2ull * f[3] + 3 * P - f[0] - f[1] - f[4]);
   }
   if (G == 2) {                           // R + 2C - ((U + W - 2UW) + B + Cin)
-    const uint64_t u = at(0), w = at(1);
+    const uint64_t u = f[0], w = f[1];
     const uint64_t uw = m31_red(u * w);
-    return m31_red(at(3) + 2 * at(4) + 2 * uw + 4 * P - u - w - at(2) - at(5));
+    return m31_red((uint64_t)f[3] + 2ull * f[4] + 2 * uw + 4 * P - u - w - f[2] - f[5]);
   }
   if (G == 3) {                           // R + 2AB - (A + B)
-    const uint64_t a = at(0), b = at(1);
-    return m31_red(at(2) + 2 * (uint64_t)m31_red(a * b) + 2 * P - a - b);
+    const uint64_t a = f[0], b = f[1];
+    return m31_red((uint64_t)f[2] + 2 * (uint64_t)m31_red(a * b) + 2 * P - a - b);
   }
-  const uint64_t ks = at(0), pt = at(1);  // KS + PT - (2 KS PT + CT)
-  return m31_red(ks + pt + 3 * P - 2 * (uint64_t)m31_red(ks * pt) - at(2));
+  const uint64_t ks = f[0], pt = f[1];    // KS + PT - (2 KS PT + CT)
+  return m31_red(ks + pt + 3 * P - 2 * (uint64_t)m31_red(ks * pt) - f[2]);
 }
 
-template <int G>
-__device__ __forceinline__ void accumulate(const uint32_t* __restrict__ vals, long long M,
-                                           long long x, const Groups& gr, long long start,
-                                           long long k0, long long k1,
-                                           const uint32_t* __restrict__ weights,
-                                           uint64_t acc[4]) {
-  const long long lo = k0 > start ? k0 : start;
-  const long long end = start + gr.n[G];
-  const long long hi = k1 < end ? k1 : end;
-  for (long long k = lo; k < hi; ++k) {
-    const uint64_t c = constraint<G>(vals, M, x, gr, k - start);
-    const uint32_t* w = weights + 4 * k;
+// V neighbouring values from p (V * 4-byte aligned)
+template <int V>
+__device__ __forceinline__ void load_points(const uint32_t* __restrict__ p, uint32_t* v) {
+  if constexpr (V == 4) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// A folded sum is below 2^34: 2^32 = 2 (mod p), so lo + 2 hi <= 2^32 - 1 +
+// 2^33 - 2. A term w * c is at most (p - 1)^2 = 2^62 - 2^33 + 4, so four
+// terms and a folded sum stay below 2^64 - 2^34 + 2^4: the sum takes four
+// terms per fold.
+__device__ __forceinline__ uint64_t fold(uint64_t a) {
+  return (a & 0xFFFFFFFFull) + 2 * (a >> 32);
+}
+
+// rows[f][j]: field f of the slice's constraint j, as the row's first
+// value's offset row * M when Off is 32-bit (R * M < 2^31), else the row
+template <typename Off>
+__device__ __forceinline__ Off row_offset(uint32_t r, Off M) {
+  if constexpr (sizeof(Off) == 4) {
+    return r;
+  } else {
+    return (Off)r * M;
+  }
+}
+
+template <int G, int U, typename Off, int V>
+__device__ __forceinline__ void group_step(const uint32_t* __restrict__ vx, Off M,
+                                           uint32_t (*rows)[kSliceMax],
+                                           const uint4* __restrict__ w, int j,
+                                           uint64_t acc[4][V]) {
+  constexpr int F = group_fields(G);
+  uint32_t v[U][F][V];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {       // each term folded below 2^32
-      const uint64_t t = (uint64_t)w[q] * c;
-      acc[q] += (t & kP31) + (t >> 31);
+  for (int u = 0; u < U; ++u)             // every gather of the step in flight
+#pragma unroll
+    for (int f = 0; f < F; ++f) load_points<V>(vx + row_offset<Off>(rows[f][j + u], M), v[u][f]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const uint4 wk = w[j + u];
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      uint32_t fv[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) fv[f] = v[u][f][p];
+      const uint32_t c = constraint<G>(fv);
+      acc[0][p] += (uint64_t)wk.x * c;    // one IMAD.WIDE.U32 a component
+      acc[1][p] += (uint64_t)wk.y * c;
+      acc[2][p] += (uint64_t)wk.z * c;
+      acc[3][p] += (uint64_t)wk.w * c;
     }
   }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int p = 0; p < V; ++p) acc[q][p] = fold(acc[q][p]);
 }
 
-// grid (point tiles, slices): partial[(slice * 4 + q) * M + x]
+// the slice's constraints [lo, hi) (slice-relative) of group G: four a step
+template <int G, typename Off, int V>
+__device__ __forceinline__ void group_terms(const uint32_t* __restrict__ vx, Off M,
+                                            uint32_t (*rows)[kSliceMax],
+                                            const uint4* __restrict__ w, int lo, int hi,
+                                            uint64_t acc[4][V]) {
+  int j = lo;
+  for (; j + 4 <= hi; j += 4) group_step<G, 4, Off, V>(vx, M, rows, w, j, acc);
+  for (; j < hi; ++j) group_step<G, 1, Off, V>(vx, M, rows, w, j, acc);
+}
+
+// grid (point tiles, slices of `slice` <= kSliceMax constraints); thread
+// handles points [x, x + V); partial[(slice * 4 + q) * M + x]. The block
+// first copies its slice's index fields and weights to shared memory.
+template <typename Off, int V>
 __global__ void __launch_bounds__(kStarkThreads)
     composition_kernel(const uint32_t* __restrict__ vals, long long M, Groups gr,
-                       const uint32_t* __restrict__ weights, long long slice,
+                       const uint32_t* __restrict__ weights, int slice,
                        uint32_t* __restrict__ partial) {
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ uint32_t rows[kMaxFields][kSliceMax];
+  __shared__ uint4 w[kSliceMax];
+  long long total = 0;
+  for (int g = 0; g < kGroups; ++g) total += gr.n[g];
+  const long long k0 = (long long)blockIdx.y * slice;
+  const int cnt = (int)(total - k0 < slice ? total - k0 : slice);
+  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+    long long i = k0 + j;
+    int g = 0;
+    while (i >= gr.n[g]) i -= gr.n[g++];
+    const int32_t* ix = gr.idx + gr.off[g] + i;
+    for (int f = 0; f < group_fields(g); ++f) {
+      const uint32_t r = (uint32_t)ix[f * gr.n[g]];
+      rows[f][j] = sizeof(Off) == 4 ? r * (uint32_t)M : r;
+    }
+    w[j] = reinterpret_cast<const uint4*>(weights)[k0 + j];
+  }
+  __syncthreads();
+  const long long x = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (x >= M) return;
-  const long long k0 = (long long)blockIdx.y * slice, k1 = k0 + slice;
-  uint64_t acc[4] = {0, 0, 0, 0};
-  long long s = 0;
-  accumulate<0>(vals, M, x, gr, s, k0, k1, weights, acc);
-  s += gr.n[0];
-  accumulate<1>(vals, M, x, gr, s, k0, k1, weights, acc);
-  s += gr.n[1];
-  accumulate<2>(vals, M, x, gr, s, k0, k1, weights, acc);
-  s += gr.n[2];
-  accumulate<3>(vals, M, x, gr, s, k0, k1, weights, acc);
-  s += gr.n[3];
-  accumulate<4>(vals, M, x, gr, s, k0, k1, weights, acc);
+  uint64_t acc[4][V] = {};
+  int lo = 0;
+  long long start = 0;                    // first constraint of the group
+#define ZK_GROUP(G)                                                                     \
+  {                                                                                     \
+    const long long a = start > k0 ? start - k0 : 0;                                    \
+    const long long e = start + gr.n[G] - k0;                                           \
+    const int hi = (int)(e < cnt ? (e > 0 ? e : 0) : cnt);                              \
+    lo = (int)(a < hi ? a : hi);                                                        \
+    group_terms<G, Off, V>(vals + x, (Off)M, rows, w, lo, hi, acc);                     \
+    start += gr.n[G];                                                                   \
+  }
+  ZK_GROUP(0) ZK_GROUP(1) ZK_GROUP(2) ZK_GROUP(3) ZK_GROUP(4)
+#undef ZK_GROUP
 #pragma unroll
-  for (int q = 0; q < 4; ++q) partial[((long long)blockIdx.y * 4 + q) * M + x] = m31_red(acc[q]);
+  for (int q = 0; q < 4; ++q) {
+    uint32_t* o = partial + ((long long)blockIdx.y * 4 + q) * M + x;
+#pragma unroll
+    for (int p = 0; p < V; ++p) o[p] = m31_red(acc[q][p]);
+  }
 }
 
-// out[q * M + x] = (sum over slices of partial) * vn_inv[x]
-__global__ void __launch_bounds__(kStarkThreads)
+constexpr int kFinishRows = 32;         // slice partials a finishing block sums at once
+
+// out[g] = (sum over slices s of partial[s * 4M + g]) * vn_inv[g mod M] for
+// g < 4M: block (32 outputs) x (kFinishRows slice rows), each thread summing
+// every kFinishRows-th slice, then the rows added in shared memory.
+__global__ void __launch_bounds__(32 * kFinishRows)
     composition_finish_kernel(const uint32_t* __restrict__ partial, long long M,
                               long long n_slices, const uint32_t* __restrict__ vn_inv,
                               uint32_t* __restrict__ out) {
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < 4 * M;
-       g += (long long)gridDim.x * blockDim.x) {
-    const long long q = g / M, x = g - q * M;
-    uint64_t acc = 0;                   // n_slices terms < 2^31 each
-    for (long long s = 0; s < n_slices; ++s) acc += partial[(s * 4 + q) * M + x];
-    out[g] = m31_mul(m31_red(acc), vn_inv[x]);
+  __shared__ uint64_t sums[kFinishRows][32];
+  const long long g = (long long)blockIdx.x * 32 + threadIdx.x;
+  const int r = threadIdx.y;
+  uint64_t acc = 0;                       // n_slices terms < 2^31 each
+  if (g < 4 * M) {
+    long long s = r;
+    for (; s + 3 * kFinishRows < n_slices; s += 4 * kFinishRows)
+      acc += (uint64_t)partial[s * 4 * M + g] + partial[(s + kFinishRows) * 4 * M + g] +
+             partial[(s + 2 * kFinishRows) * 4 * M + g] +
+             partial[(s + 3 * kFinishRows) * 4 * M + g];
+    for (; s < n_slices; s += kFinishRows) acc += partial[s * 4 * M + g];
   }
+  sums[r][threadIdx.x] = acc;
+  __syncthreads();
+  if (r == 0 && g < 4 * M) {
+    for (int k = 1; k < kFinishRows; ++k) acc += sums[k][threadIdx.x];
+    out[g] = m31_mul(m31_red(acc), vn_inv[g % M]);
+  }
+}
+
+inline int launch_finish(const uint32_t* partial, long long M, long long n_slices,
+                         const uint32_t* vn_inv, uint32_t* out, cudaStream_t st) {
+  const dim3 grid((unsigned)((4 * M + 31) / 32)), block(32, kFinishRows);
+  composition_finish_kernel<<<grid, block, 0, st>>>(partial, M, n_slices, vn_inv, out);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ K7d
@@ -481,6 +705,26 @@ int zksc_blake2s(const void* base, long long count, long long len, long long msg
   return (int)cudaGetLastError();
 }
 
+// K7a, one launch a tree: N (a power of two) leaves of `len` bytes, word j
+// of leaf i at base[i * msg_stride + j * word_stride]; out: [2N - 1, 8]
+// digest words, the layers back to back; ticket: one unsigned of scratch,
+// zeroed here on the stream before the launch.
+int zksc_blake2s_tree(const void* base, long long N, long long len, long long msg_stride,
+                      long long word_stride, void* out, void* ticket, void* stream) {
+  if (N <= 0 || (N & (N - 1)) || len < 0) return (int)cudaErrorInvalidValue;
+  const int L = (int)(N < zksc::kTreeLeaves ? N : zksc::kTreeLeaves);
+  if (N / L > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N > L) {                                // more than one block: a ticket
+    const cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  zksc::blake2s_tree_kernel<<<dim3((unsigned)(N / L)), dim3(L), 0, st>>>(
+      (const uint32_t*)base, N, L, len, msg_stride, word_stride, (uint32_t*)out,
+      (unsigned*)ticket);
+  return (int)cudaGetLastError();
+}
+
 // K7b. in, out: [C, 2^log_n], distinct; interp: 1 interpolate, 0 evaluate;
 // rev: 1 an x-layer, 0 the y-layer; log_w: the layer's chunk width; tw:
 // 2^log_w twiddles (interpolate: inverses).
@@ -508,11 +752,15 @@ int zksc_circle_layer(const void* in, void* out, long long C, int log_n, int int
 }
 
 // K7c. vals: [R, M]; idx: the packed index groups (off, n: 5 entries each,
-// bool/add/addx/xor/eq); weights: [sum n, 4]; partial: [n_slices, 4, M]
-// scratch, n_slices = ceil(sum n / slice); out: [4, M].
+// bool/add/addx/xor/eq); weights: [sum n, 4]; slice: constraints a slice (<=
+// 128); points: points a thread (1 or 2; M a multiple); threads: a block's
+// threads (32 or 128); wide: 64-bit gather offsets (R * M >= 2^31);
+// partial: [n_slices, 4, M] scratch, n_slices = ceil(sum n / slice); out:
+// [4, M].
 int zksc_composition(const void* vals, long long M, const void* idx, const long long* off,
-                     const long long* n, const void* weights, long long slice, void* partial,
-                     const void* vn_inv, void* out, void* stream) {
+                     const long long* n, const void* weights, long long slice, int points,
+                     int threads, int wide, void* partial, const void* vn_inv, void* out,
+                     void* stream) {
   if (M <= 0) return (int)cudaSuccess;
   zksc::Groups gr;
   gr.idx = (const int32_t*)idx;
@@ -522,22 +770,36 @@ int zksc_composition(const void* vals, long long M, const void* idx, const long 
     gr.n[g] = n[g];
     total += n[g];
   }
-  if (slice <= 0) return (int)cudaErrorInvalidValue;
+  if (slice <= 0 || slice > zksc::kSliceMax) return (int)cudaErrorInvalidValue;
+  if ((points != 1 && points != 2 && points != 4) || M % points) return (int)cudaErrorInvalidValue;
+  if (threads != 32 && threads != zksc::kStarkThreads) return (int)cudaErrorInvalidValue;
   const long long n_slices = total > 0 ? (total + slice - 1) / slice : 1;
   if (n_slices > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((M + zksc::kStarkThreads - 1) / zksc::kStarkThreads),
-                  (unsigned)n_slices);
-  const dim3 block(zksc::kStarkThreads);
-  zksc::composition_kernel<<<grid, block, 0, st>>>((const uint32_t*)vals, M, gr,
-                                                   (const uint32_t*)weights, slice,
-                                                   (uint32_t*)partial);
+  const long long tile = (long long)threads * points;
+  const dim3 grid((unsigned)((M + tile - 1) / tile), (unsigned)n_slices), block(threads);
+  const uint32_t* v = (const uint32_t*)vals;
+  const uint32_t* w = (const uint32_t*)weights;
+  uint32_t* p = (uint32_t*)partial;
+  const int s = (int)slice;
+  if (wide) {
+    if (points == 4)
+      zksc::composition_kernel<unsigned long long, 4><<<grid, block, 0, st>>>(v, M, gr, w, s, p);
+    else if (points == 2)
+      zksc::composition_kernel<unsigned long long, 2><<<grid, block, 0, st>>>(v, M, gr, w, s, p);
+    else
+      zksc::composition_kernel<unsigned long long, 1><<<grid, block, 0, st>>>(v, M, gr, w, s, p);
+  } else {
+    if (points == 4)
+      zksc::composition_kernel<uint32_t, 4><<<grid, block, 0, st>>>(v, M, gr, w, s, p);
+    else if (points == 2)
+      zksc::composition_kernel<uint32_t, 2><<<grid, block, 0, st>>>(v, M, gr, w, s, p);
+    else
+      zksc::composition_kernel<uint32_t, 1><<<grid, block, 0, st>>>(v, M, gr, w, s, p);
+  }
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const dim3 grid2(zksc::stark_grid(4 * M));
-  zksc::composition_finish_kernel<<<grid2, block, 0, st>>>(
-      (const uint32_t*)partial, M, n_slices, (const uint32_t*)vn_inv, (uint32_t*)out);
-  return (int)cudaGetLastError();
+  return zksc::launch_finish(p, M, n_slices, (const uint32_t*)vn_inv, (uint32_t*)out, st);
 }
 
 // K7d. vals: [R, M]; perm: sigma as an index map [M]; idx: the packed fields
@@ -574,10 +836,8 @@ int zksc_aes_composition(const void* vals, long long M, const void* perm, const 
       (const uint32_t*)weights, (uint32_t*)partial);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const dim3 grid2(zksc::stark_grid(4 * M));
-  zksc::composition_finish_kernel<<<grid2, block, 0, st>>>(
-      (const uint32_t*)partial, M, n_slices, (const uint32_t*)vn_inv, (uint32_t*)out);
-  return (int)cudaGetLastError();
+  return zksc::launch_finish((const uint32_t*)partial, M, n_slices, (const uint32_t*)vn_inv,
+                             (uint32_t*)out, st);
 }
 
 }  // extern "C"

@@ -2,6 +2,8 @@
 
   - blake2s (K7a): Blake2s-256 of many messages from a strided source;
     replaces the work of zksc_tpu/stark/blake2s.py:blake2s / blake2s_pair.
+    blake2s_tree (K7a's tree launch): a whole Merkle tree over strided
+    leaves, every layer, in one launch (zksc_tpu/stark/merkle.py:commit).
   - circle_layer (K7b): one fold layer of the circle FFT over a batch of
     columns; replaces zksc_tpu/stark/circle.py:CircleFFT.interpolate /
     evaluate, which XLA fuses.
@@ -32,9 +34,12 @@ from . import cuda_build
 LAUNCHES = {"blake2s": 0, "circle_layer": 0, "composition": 0,
             "aes_composition": 0}
 
-# constraints per K7c slice: grid (ceil(M / 128) point tiles) x (53,504 /
-# 128 = 418 slices) at the chacha20 AIR, ~3,300 blocks at M = 1,024
-COMPOSITION_SLICE = 128
+# constraints per K7c slice (at most the kernel's kSliceMax, 128), and the
+# smaller slice for a single 32-thread point tile
+COMPOSITION_SLICE = 64
+COMPOSITION_SLICE_SMALL = 32
+# K7c gathers with 64-bit offsets from R * M values on
+WIDE_OFFSETS_FROM = 1 << 31
 # values gathered per K7d slice (aes_slices): ~120 slices x 16 point tiles
 # for the AES-128 AIR (~30.5k values a point) at M = 2,048
 AES_SLICE_GATHERS = 256
@@ -50,11 +55,13 @@ def _declare(lib):
     lls = ctypes.POINTER(ctypes.c_longlong)
     lib.zksc_blake2s.restype = ci
     lib.zksc_blake2s.argtypes = [vp, cll, cll, cll, cll, vp, vp]
+    lib.zksc_blake2s_tree.restype = ci
+    lib.zksc_blake2s_tree.argtypes = [vp, cll, cll, cll, cll, vp, vp, vp]
     lib.zksc_circle_layer.restype = ci
     lib.zksc_circle_layer.argtypes = [vp, vp, cll, ci, ci, ci, ci, vp, vp]
     lib.zksc_composition.restype = ci
-    lib.zksc_composition.argtypes = [vp, cll, vp, lls, lls, vp, cll, vp, vp,
-                                     vp, vp]
+    lib.zksc_composition.argtypes = [vp, cll, vp, lls, lls, vp, cll, ci, ci,
+                                     ci, vp, vp, vp, vp]
     lib.zksc_aes_composition.restype = ci
     lib.zksc_aes_composition.argtypes = [
         vp, cll, vp, vp, lls, lls, ctypes.POINTER(ci),
@@ -128,6 +135,40 @@ def blake2s(base: torch.Tensor, count: int, length: int, msg_stride: int,
     return out
 
 
+_TICKETS = {}
+
+
+def _ticket(t: torch.Tensor) -> torch.Tensor:
+    """The tree launch's ticket for t's device and current stream: one
+    int32 that zksc_blake2s_tree zeroes on the stream before each launch,
+    so launches on one stream share it."""
+    key = (t.device, _stream(t))
+    tk = _TICKETS.get(key)
+    if tk is None:
+        tk = _TICKETS[key] = torch.empty(1, dtype=torch.int32, device=t.device)
+    return tk
+
+
+def blake2s_tree(base: torch.Tensor, count: int, length: int, msg_stride: int,
+                 word_stride: int) -> torch.Tensor:
+    """K7a's tree launch: the Merkle tree over `count` (a power of two)
+    leaves, leaf i the Blake2s-256 of the strided message i (as
+    ``blake2s``), each node the hash of its children's digests. Returns
+    int32 [2 * count - 1, 8]: the leaf digests, then each node layer up to
+    the root, back to back. One launch."""
+    _check(base, "blake2s_tree source")
+    if count < 1 or count & (count - 1):
+        raise ValueError(f"blake2s_tree: {count} leaves is not a power of two")
+    check_strided(base, count, length, msg_stride, word_stride, "blake2s_tree")
+    out = torch.empty((2 * count - 1, 8), dtype=torch.int32, device=base.device)
+    rc = _lib().zksc_blake2s_tree(base.data_ptr(), count, length, msg_stride,
+                                  word_stride, out.data_ptr(),
+                                  _ticket(base).data_ptr(), _stream(base))
+    _raise_on(rc, "blake2s_tree")
+    LAUNCHES["blake2s"] += 1
+    return out
+
+
 # ---------------------------------------------------------------- K7b
 
 def circle_layer(src: torch.Tensor, interp: bool, rev: bool, log_w: int,
@@ -182,11 +223,27 @@ def pack_groups(groups: dict) -> tuple:
     return np.concatenate(parts), tuple(off), tuple(n)
 
 
+def composition_plan(M: int) -> tuple:
+    """K7c's launch shape at M points: (constraints a slice, points a
+    thread, threads a block), the fastest of the shapes timed on one H100.
+    Four neighbouring points a thread (16-byte
+    gathers) from M = 512, two from 64, else one; 128-thread point tiles
+    where they fill, else one warp; slices of 64 constraints, 32 for a
+    single warp tile (M = 32: ~1,700 one-warp blocks on the
+    54,784-constraint stwo AIR)."""
+    points = 4 if M % 4 == 0 and M >= 512 else 2 if M % 2 == 0 and M >= 64 else 1
+    threads = 128 if M // points >= 128 else 32
+    tiles = -(-M // (points * threads))
+    slice_ = COMPOSITION_SLICE if tiles * threads >= 128 else COMPOSITION_SLICE_SMALL
+    return slice_, points, threads
+
+
 def composition(vals: torch.Tensor, idx: torch.Tensor, off: tuple, n: tuple,
                 weights: torch.Tensor, vn_inv: torch.Tensor) -> torch.Tensor:
     """K7c: Q = (sum_k w_k c_k) / V_N as int32 [4, M] from vals [R, M], the
     packed index groups (pack_groups, on the device), weights [K, 4] and
-    vn_inv [M]. Two launches: the sliced sums, then their total."""
+    vn_inv [M], in the launch shape composition_plan(M). Two launches: the
+    sliced sums, then their total."""
     _check(vals, "composition vals")
     if vals.dim() != 2:
         raise ValueError(f"composition: expected vals [R, M], got {tuple(vals.shape)}")
@@ -200,9 +257,14 @@ def composition(vals: torch.Tensor, idx: torch.Tensor, off: tuple, n: tuple,
             raise ValueError("composition: operands on different devices")
     if len(off) != 5 or len(n) != 5:
         raise ValueError("composition: expected five index groups")
-    n_slices = max(1, -(-K // COMPOSITION_SLICE))
+    slice_, points, threads = composition_plan(M)
+    n_slices = max(1, -(-K // slice_))
     if n_slices > 65535:
         raise ValueError(f"composition: {n_slices} slices exceed the grid")
+    if vals.data_ptr() % (4 * points):
+        raise ValueError(f"composition: vals is not {4 * points}-byte aligned")
+    if weights.data_ptr() % 16:
+        raise ValueError("composition: weights are not 16-byte aligned")
     partial = torch.empty((n_slices, 4, M), dtype=torch.int32, device=vals.device)
     out = torch.empty((4, M), dtype=torch.int32, device=vals.device)
     if M == 0:
@@ -210,7 +272,8 @@ def composition(vals: torch.Tensor, idx: torch.Tensor, off: tuple, n: tuple,
     c_off = (ctypes.c_longlong * 5)(*off)
     c_n = (ctypes.c_longlong * 5)(*n)
     rc = _lib().zksc_composition(vals.data_ptr(), M, idx.data_ptr(), c_off,
-                                 c_n, weights.data_ptr(), COMPOSITION_SLICE,
+                                 c_n, weights.data_ptr(), slice_, points,
+                                 threads, int(R * M >= WIDE_OFFSETS_FROM),
                                  partial.data_ptr(), vn_inv.data_ptr(),
                                  out.data_ptr(), _stream(vals))
     _raise_on(rc, "composition")

@@ -8,7 +8,9 @@ the same compression on int64 tensors (each holding a uint32 word).
 
 The sources are strided (``hash_strided``): word j of message i is
 ``base.view(-1)[i * msg_stride + j * word_stride]``, so the prover hashes
-the columns of its [C, M] LDE and the pairs of a Merkle layer in place.
+the columns of its [C, M] LDE in place. ``tree_strided`` hashes a whole
+Merkle tree over such leaves: K7a's tree launch on a CUDA tensor,
+``tree_strided_plain`` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -114,6 +116,39 @@ def hash_strided(base: torch.Tensor, count: int, length: int, msg_stride: int,
     if base.device.type == "cpu":
         return hash_strided_plain(base, count, length, msg_stride, word_stride)
     return stark_kernels.blake2s(base, count, length, msg_stride, word_stride)
+
+
+def tree_strided_plain(base: torch.Tensor, count: int, length: int,
+                       msg_stride: int, word_stride: int) -> torch.Tensor:
+    """Plain PyTorch version of K7a's tree launch: the leaf digests of the
+    `count` (a power of two) strided messages, then each node layer
+    (Blake2s of the two children's 64 bytes) up to the root. Returns int32
+    [2 * count - 1, 8], the layers back to back."""
+    if count < 1 or count & (count - 1):
+        raise ValueError(f"blake2s_tree: {count} leaves is not a power of two")
+    return tree_from_leaves_plain(
+        hash_strided_plain(base, count, length, msg_stride, word_stride))
+
+
+def tree_from_leaves_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """The leaf digests (int32 [N, 8]) and every node layer above them, up
+    to the root, back to back: int32 [2N - 1, 8]."""
+    layers = [leaves]
+    while layers[-1].shape[0] > 1:
+        cur = layers[-1]
+        layers.append(hash_strided_plain(cur, cur.shape[0] // 2, 64, 16, 1))
+    return torch.cat(layers)
+
+
+def tree_strided(base: torch.Tensor, count: int, length: int, msg_stride: int,
+                 word_stride: int) -> torch.Tensor:
+    """The Merkle tree over `count` strided leaves as int32 [2 * count - 1,
+    8]: K7a's tree launch on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if base.device.type == "cpu":
+        return tree_strided_plain(base, count, length, msg_stride, word_stride)
+    return stark_kernels.blake2s_tree(base, count, length, msg_stride,
+                                      word_stride)
 
 
 def _words_of(data: torch.Tensor, length: int) -> torch.Tensor:

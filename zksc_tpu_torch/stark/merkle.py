@@ -6,15 +6,13 @@ and openings; paths are checked on the host with hashlib (``verify_path``).
 Where the hashing runs:
 
   - ``commit_columns`` (the trace commitment): the leaves are the columns of
-    the prover's [C, M] LDE. On the card K7a hashes them straight from that
-    tensor (word j of leaf i is lde[j, i], so a warp reads neighbouring
-    words); no transpose and no host copy.
-  - ``commit`` (FRI's 16-byte leaves): K7a on the card from
-    ``DEVICE_MIN_LEAVES`` leaves, which pay a copy to the card and back;
-    hashlib on the host below that.
-  - every node layer: K7a on the card for a layer of at least
-    ``DEVICE_MIN_HASHES`` pairs, read in place; hashlib on the host below
-    that (the upper layers of every tree).
+    the prover's [C, M] LDE. On the card K7a's tree launch hashes them
+    straight from that tensor (word j of leaf i is lde[j, i]) and every
+    node layer above them, in one launch; no transpose, and one copy of
+    the layers to the host.
+  - ``commit`` (FRI's 16-byte leaves): the same tree launch on the card
+    from ``DEVICE_MIN_LEAVES`` leaves, which pay a copy to the card and
+    back; hashlib on the host below that.
   - On the CPU, hashlib throughout, as the reference's host path.
 
 The reference sends a tree to the device only from 2^17 leaves, a threshold
@@ -30,13 +28,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .blake2s import hash_strided
+from .blake2s import tree_strided
 
-# Layers with fewer hashes go to hashlib: measured by chip_smoke.py's phase
-# 3 sweep on one H100 (PERF.md section 6). A node layer's pairs are already
-# on the card; FRI's leaves come from the host, so K7a wins later.
-DEVICE_MIN_HASHES = 64
-DEVICE_MIN_LEAVES = 128
+# Trees of fewer leaves go to hashlib: chip_smoke.py's phase 3 sweep on one
+# H100 (whole trees, the leaves copied from the host and the layers back;
+# PERF.md section 6) has the tree launch faster from 64 leaves of 16 bytes
+# and of 8 column words.
+DEVICE_MIN_LEAVES = 64
 
 
 @dataclass
@@ -74,35 +72,34 @@ def commit(leaves: np.ndarray, device=None) -> MerkleTree:
     buf = np.zeros((n, 4 * nw), dtype=np.uint8)
     buf[:, :leaf_len] = leaves
     words = torch.from_numpy(buf.view(np.int32)).to(dev)
-    return _commit_nodes_device(hash_strided(words, n, leaf_len, nw, 1))
+    return _tree_device(words, n, leaf_len, nw, 1)
 
 
 def commit_columns(cols: torch.Tensor) -> MerkleTree:
     """The tree whose leaf i is column i of the int32 [C, M] tensor `cols`
-    (its C words, little-endian): K7a over the columns in place on the
-    card, hashlib over the rows of the transpose on the CPU."""
+    (its C words, little-endian): K7a's tree launch over the columns in
+    place on the card, hashlib over the rows of the transpose on the
+    CPU."""
     C, M = cols.shape
     _check_pow2(M)
     if cols.device.type == "cpu":
         rows = np.ascontiguousarray(cols.numpy().T).view(np.uint8)
         return _commit_host(rows.reshape(M, 4 * C))
-    return _commit_nodes_device(hash_strided(cols.contiguous(), M, 4 * C, 1, M))
+    return _tree_device(cols.contiguous(), M, 4 * C, 1, M)
 
 
-def _commit_nodes_device(cur: torch.Tensor) -> MerkleTree:
-    """The tree above the leaf digests `cur` (int32 [N, 8] on the card):
-    node layers of at least DEVICE_MIN_HASHES pairs by K7a, reading
-    cur[2i] || cur[2i+1] in place; the rest by hashlib."""
-    dev_layers = [cur]
-    while cur.shape[0] // 2 >= DEVICE_MIN_HASHES:
-        cur = hash_strided(cur, cur.shape[0] // 2, 64, 16, 1)
-        dev_layers.append(cur)
-    flat = torch.cat(dev_layers).cpu().numpy().view(np.uint8)   # one copy
+def _tree_device(base: torch.Tensor, n: int, length: int, msg_stride: int,
+                 word_stride: int) -> MerkleTree:
+    """The tree over n strided leaves on the card: one K7a tree launch, its
+    layers ([2n - 1, 8] words, back to back) copied to the host once."""
+    flat = tree_strided(base, n, length, msg_stride, word_stride)
+    flat = flat.cpu().numpy().view(np.uint8)
     layers, at = [], 0
-    for layer in dev_layers:
-        layers.append(flat[at:at + layer.shape[0]])
-        at += layer.shape[0]
-    return MerkleTree(layers=layers[:-1] + _commit_host_nodes(layers[-1]))
+    while n >= 1:
+        layers.append(flat[at:at + n])
+        at += n
+        n //= 2
+    return MerkleTree(layers=layers)
 
 
 def _commit_host(leaves: np.ndarray) -> MerkleTree:
