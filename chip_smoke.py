@@ -20,8 +20,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      their seconds; then, from ptxas, each kernel instance's registers,
      stack and spill bytes (K3: lane_kernel and split_kernel, each for Fp
      and Fp2h; K7a blake2s_kernel and blake2s_tree_kernel, K7b
-     circle_layer_kernel<interp, rev>, K7c composition_kernel<offset,
-     points> and composition_finish_kernel, K7d aes_composition_kernel).
+     circle_fft_kernel<interp, B, threads> and circle_layer_kernel<interp,
+     rev>, K7c composition_kernel<offset, points> and
+     composition_finish_kernel, K7d aes_composition_kernel<offset, points>).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -56,13 +57,20 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      rows (FRI's leaves), equal to hashlib's; both launches timed at 1,024
      x 129,024 B and 32 x 133,120 B beside K7a's chain floor; K7b
      interpolate and evaluate at log N = 3, 6, 8, 10, 11, 16, 20 over 1
-     column and over min(4,096, 2^28 / N) columns, with the round trip;
-     K7c at M = 1,024 on the chacha20 AIR's index groups with random
-     values; at the stark-stwo shapes, K7c on its AIR's groups at M = 32
-     and 512 and K7b interpolate [33,280, 16] and evaluate [33,280, 32]; K7d on the AES-128 and AES-256 AIRs' index groups at M =
-     2,048 (the 80-byte chunk) and on AES-256's at M = 8,192 (the 16 KiB
-     record), random values and challenges, sigma as the prover's; each
-     K7c line names the launch shape the wrapper picked (composition_plan).
+     column and over min(4,096, 2^28 / N) columns, with the round trip
+     (one circle_fft launch up to 2^15, one circle_layer launch a layer
+     above); K7b's circle_fft at every LDE shape of phases 9-11 (the
+     chacha20 and both AES LDEs, evaluate from N + 50 coefficients
+     rounded up to 4; stwo's) and at 2^15, each timed beside its bound and
+     beside circle_layer's per-layer route on the same values, and an
+     evaluate at 2^16 through circle_layer (16 launches); K7c at M = 1,024
+     on the chacha20 AIR's index groups with random values; at the
+     stark-stwo shapes, K7c on its AIR's groups at M = 32 and 512; K7d on
+     the AES-128 and AES-256 AIRs' index groups at M = 2,048 (the 80-byte
+     chunk) and 8,192 (the 16 KiB record), random values and challenges,
+     sigma as the prover's, in the wrapper's plan (aes_composition_plan),
+     timed beside its bound; each K7c line
+     names the launch shape the wrapper picked (composition_plan).
      Then the Merkle crossover: whole trees of 4-4,096 16-byte leaves or 8-word
      column leaves by hashlib and by K7a's tree launch (with its copies),
      host clock.
@@ -100,7 +108,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
   9. the stark engine (chacha20, Circle STARK over M31): api.generate_proof(
      "chacha20", ..., engine="stark") on a 128-byte chunk, cold, warm (the
      launch counters reset just before it, K7a, K7b and K7c must all be >
-     0; stage seconds and peak device memory) and once more for phase 5;
+     0 and K7b exactly 2, one a transform; stage seconds and peak device
+     memory) and once more for phase 5;
      api.verify_proof(..., engine="stark") accepts it and rejects a flipped
      ciphertext byte and a flipped byte inside the bincode payload;
      stark.prover.prove_stream on a 16 KiB record (256 blocks) twice (the
@@ -111,8 +120,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
  10. the stark engine for aes-128-ctr and aes-256-ctr (the LogUp S-box
      AIR): for each key size, api.generate_proof(..., engine="stark") on
      an 80-byte chunk cold, warm (the launch counters reset just before
-     it, K7a, K7b and K7d must all be > 0; stage seconds, peak device
-     memory, envelope size) and, for aes-128-ctr, once more for phase 5;
+     it, K7a, K7b and K7d must all be > 0, K7b exactly 4; stage seconds,
+     peak device memory, envelope size) and, for aes-128-ctr, once more
+     for phase 5;
      verify_proof(..., engine="stark") accepts it and rejects a flipped
      ciphertext byte and a flipped byte of the bincode payload;
      stark.aes_prover.prove_aes_ctr on a 16 KiB record (1,024 blocks, N =
@@ -125,8 +135,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      _ls5) proved on the card, each equal to the fixture byte for byte;
      api.generate_proof("chacha20", ..., engine="stark-stwo") on a
      128-byte chunk cold, warm (the launch counters reset just before it,
-     K7a, K7b and K7c must all be > 0; stage seconds, peak device memory,
-     envelope size) and once more for phase 5 (equal bytes); verify_proof(
+     K7a, K7b and K7c must all be > 0, K7b exactly 3; stage seconds, peak
+     device memory, envelope size) and once more for phase 5 (equal
+     bytes); verify_proof(
      ..., engine="stark-stwo") accepts it and rejects a flipped ciphertext
      byte and a flipped byte of the base64 payload; prove_stream_bytes on
      a 16 KiB record (256 blocks, log size 8) twice with the same checks
@@ -196,7 +207,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      timed and set beside its bound (the larger of integer operations over
      the card's rate and the bytes read once and written once over HBM),
      then every K7 call of each proof, summed per kernel (K7a's tree
-     launches under K7a); each K7a line adds its chain floor (a message's
+     launches under K7a, K7b's circle_fft under K7b); each K7a line adds
+     its chain floor (a message's
      chained compressions, and a node a layer for a tree, x
      BLAKE2S_CHAIN_CLOCKS over the SM clock).
 
@@ -1502,15 +1514,23 @@ STARK_SEED = 20242        # seed of phase 9's inputs and blinding bytes
 K7_REPLACES = {"blake2s": "zksc_tpu/stark/blake2s.py:79",
                "blake2s_tree": "zksc_tpu/stark/merkle.py:40",
                "circle_layer": "zksc_tpu/stark/circle.py:104",
+               "circle_fft": "zksc_tpu/stark/circle.py:104",
                "composition": "zksc_tpu/stark/prover.py:236",
                "aes_composition": "zksc_tpu/stark/aes_prover.py:234"}
 # the K7 kernels each stark proof must launch (K7a's tree launch counts as
 # blake2s)
 CHACHA_K7 = ("blake2s", "circle_layer", "composition")
 AES_K7 = ("blake2s", "circle_layer", "aes_composition")
-# the LAUNCHES key of each stark_kernels launcher, and the keys
-K7_LAUNCH_KEY = {"blake2s_tree": "blake2s"}
+# an evaluate call of K7b replaces the reference's evaluate
+K7B_EVALUATE_REPLACES = "zksc_tpu/stark/circle.py:122"
+# the LAUNCHES key of each stark_kernels launcher (K7a's tree launch under
+# K7a, K7b's one-launch transform under K7b), and the keys
+K7_LAUNCH_KEY = {"blake2s_tree": "blake2s", "circle_fft": "circle_layer"}
 K7_KEYS = ("blake2s", "circle_layer", "composition", "aes_composition")
+# K7b launches a warm proof must make: one circle_fft a transform (the
+# chacha20 LDE's interpolate and evaluate; AES: two LDEs; stwo: the trace's
+# interpolate and evaluate, the composition's interpolate)
+K7B_LAUNCHES = {"stark chacha20": 2, "stark aes": 4, "stark-stwo": 3}
 # integer instructions per Blake2s compression, each issued at the integer
 # rate: a G is 4 IADD3 (a + b + m is one IADD3 on sm_90, c + d another), 4
 # LOP3 (the xors) and 4 SHF / PRMT (the rotates); 10 rounds x 8 G, plus the
@@ -1529,25 +1549,39 @@ BLAKE2S_ALU_OPS, BLAKE2S_FMA_OPS = 328 + 320 + 175, 157
 BLAKE2S_DEP_OPS, INT_DEP_CLOCKS = 20 * 12, 4
 BLAKE2S_CHAIN_CLOCKS = max(2 * BLAKE2S_ALU_OPS, 2 * BLAKE2S_FMA_OPS,
                            BLAKE2S_DEP_OPS * INT_DEP_CLOCKS)
-# issue slots of an M31 product (a wide multiply, two folds, a select) and
-# of an M31 add or subtract (add, compare, select)
-M31_MUL_OPS, M31_ADD_OPS = 10, 3
+# issue slots of an M31 product of canonical operands (every product K7c
+# and K7d form is one) and of an M31 add or subtract (add, compare,
+# select): the product as m31_mulc compiles for sm_90a (K7B_EVAL_OPS'
+# count: IMAD.WIDE.U32, LOP3, SHF.R.U64, IMAD.IADD, VIADDMNMX.U32). K7d forms
+# its products so; K7c still reduces each by two folds and a select (10
+# slots), which the bound does not charge.
+M31_MUL_OPS, M31_ADD_OPS = 5, 3
 # issue slots of one weighted term for the four components q, as the SASS
 # of libzksc_stark.so for sm_90a shows them (tools/stark_sass.py --loops,
-# nvcc 12.9). K7d's add_term folds each term below 2^32: per component
-# IMAD.WIDE.U32, LOP3 (the mask), SHF.R.U64 and SHF.R.U32.HI (the 64-bit
-# shift), IADD3 and IADD3.X (both into acc). K7c multiply-adds each
-# component into a u64 (one IMAD.WIDE.U32) and folds it once every four
-# terms (lo + 2 hi: SHF.R.U64, SHF.R.U32.HI, two LOP3, IADD3 and IMAD.X,
-# so the four components' folds cost 6 a term): 4 x 1 + 6
-K7D_TERM_OPS, K7C_TERM_OPS = 4 * 6, 4 * 1 + 6
+# nvcc 12.9). K7c and K7d multiply-add each component into a u64 (one
+# IMAD.WIDE.U32) and fold it once every four terms (lo + 2 hi: SHF.R.U64,
+# SHF.R.U32.HI, two LOP3, IADD3 and IMAD.X, so the four components' folds
+# cost 6 a term): 4 x 1 + 6. (An earlier K7d folded every term: 4 x 6.)
+K7C_TERM_OPS = K7D_TERM_OPS = 4 * 1 + 6
+# issue slots of one butterfly of K7b's one-launch transform, its arithmetic
+# alone, as the SASS of circle_fft_kernel for sm_90a shows it
+# (tools/stark_sass.py --loops, nvcc 12.9; the shared-memory loads and
+# stores and the index arithmetic are not the function's work). A
+# canonical M31 product is 5: IMAD.WIDE.U32, LOP3 (lo & p), SHF.R.U64 (t >>
+# 31), IMAD.IADD, VIADDMNMX.U32 (min(s, s - p)); an add 3 (IMAD.IADD,
+# ISETP, a predicated VIADD), a subtract 4 (IMAD.IADD, ISETP, VIADD, a
+# predicated IMAD.MOV), a halving 3 (SHF.R.U32.HI, IMAD.SHL, LOP3).
+# Evaluate: tw b, a + tw b, a - tw b; interpolate: (lo + hi) / 2 and (lo -
+# hi) (tw / 2), the 1/2 folded into the twiddle.
+K7B_EVAL_OPS, K7B_INTERP_OPS = 5 + 3 + 4, 3 + 3 + 4 + 5
 # M31 products per constraint of each group of the chacha20 AIR
 K7C_PRODUCTS = (1, 0, 1, 1, 1)
 # K7d, per item of each kind: M31 products, M31 adds / subtracts and
-# constraints (weight rows); the cum item's adds grow with the lookups (n_lk)
+# constraints (weight rows). A cumlk item adds its four values into the
+# slice's sums; each slice with cumlk items adds four terms once.
 K7D_ITEM = {"bool": (1, 1, 1), "const": (0, 1, 1), "xor": (1, 3, 1),
             "mix": (0, 12, 1), "lookup": (20, 35, 4), "table": (21, 19, 4),
-            "eq": (1, 4, 1)}
+            "cum": (0, 8, 4), "cumlk": (0, 4, 0), "eq": (1, 4, 1)}
 
 
 def seeded_bytes(seed: int):
@@ -1591,26 +1625,36 @@ def k7_bound_ms(name, args, imad_rate):
     if name == "circle_layer":
         src, interp = args[0], args[1]
         flies = src.numel() // 2
-        ops = flies * ((3 * M31_MUL_OPS + 2 * M31_ADD_OPS) if interp
-                       else (M31_MUL_OPS + 2 * M31_ADD_OPS))
+        ops = flies * (K7B_INTERP_OPS if interp else K7B_EVAL_OPS)
         bound, by = _bound(ops, 8 * src.numel() + 4 * args[4].numel(), imad_rate)
-        return bound, by, f"{flies} butterflies"
+        return bound, by, f"{flies} butterflies (one layer)"
+    if name == "circle_fft":
+        src, interp, log_n, tw = args[:4]
+        (C, K), N = src.shape, 1 << log_n
+        layers = log_n if interp else k7b_eval_layers(K, log_n)
+        ops = C * layers * (N // 2) * (K7B_INTERP_OPS if interp else K7B_EVAL_OPS)
+        bound, by = _bound(ops, 4 * (C * K + C * N + N), imad_rate)
+        return bound, by, (f"{C} columns x {layers} layers of {N // 2} "
+                           f"butterflies, {C * K} values in")
     if name == "aes_composition":
         from zksc_tpu_torch.ops import stark_kernels
-        vals, perm, idx, off, n, rows, bounds, za, weights = args[:9]
+        vals, perm, table, za, weights = args[:5]
+        hdr, srows, n = table[0], table[1], table[2]
         M = vals.shape[1]
         counts = stark_kernels.aes_item_counts(n)
-        item = {**K7D_ITEM, "cum": (0, 4 * (n[4] + 3), 4)}
-        ops = M * sum(counts[kind] * (p * M31_MUL_OPS + a * M31_ADD_OPS
-                                      + k * K7D_TERM_OPS)
-                      for kind, (p, a, k) in item.items())
-        nbytes = (4 * (vals.numel() + perm.numel() + idx.numel()
-                       + weights.numel() + M + 4 * M) + 8 * bounds.numel())
+        cumlk = stark_kernels.AES_KINDS.index("cumlk")
+        sum_slices = int((hdr[:, 4 + 3 * cumlk] > 0).sum())
+        ops = M * (sum(counts[kind] * (p * M31_MUL_OPS + a * M31_ADD_OPS
+                                       + k * K7D_TERM_OPS)
+                       for kind, (p, a, k) in K7D_ITEM.items())
+                   + sum_slices * 4 * (M31_ADD_OPS + K7D_TERM_OPS))
+        nbytes = 4 * (vals.numel() + perm.numel() + hdr.numel() + srows.numel()
+                      + weights.numel() + M + 4 * M)
         bound, by = _bound(ops, nbytes, imad_rate)
-        per_item = stark_kernels.aes_item_gathers(n[4])
+        per_item = stark_kernels.aes_item_gathers()
         gathers = M * sum(counts[k] * g for k, g in per_item.items())
         return bound, by, (f"{weights.shape[0]} constraints x {M} points in "
-                           f"{bounds.numel() - 1} slices, {gathers} gathers "
+                           f"{hdr.shape[0]} slices, {gathers} gathers "
                            f"({4 * gathers / HBM_BYTES_PER_S * 1e3:.4f} ms of "
                            f"HBM if every gather missed the caches)")
     vals, idx, off, n, weights = args[:5]
@@ -1625,6 +1669,19 @@ def k7_bound_ms(name, args, imad_rate):
                        f"of HBM if every gather missed the caches)")
 
 
+def k7b_eval_layers(K: int, log_n: int) -> int:
+    """Layers of an evaluate of K coefficients (the rest zero) at N =
+    2^log_n that do arithmetic in circle_fft_kernel: an x-layer whose upper
+    half is still zero only copies (the values' extent doubles)."""
+    ext, layers = K, 1                      # the y-layer
+    for _ in range(log_n - 1):
+        if ext <= (1 << log_n) // 2:
+            ext *= 2
+        else:
+            layers += 1
+    return layers
+
+
 def k7_variant(name, args) -> str:
     if name in ("blake2s", "blake2s_tree"):
         base, count, length, ms, ws = args[:5]
@@ -1637,6 +1694,10 @@ def k7_variant(name, args) -> str:
         form = ("interpolate" if interp else "evaluate") + (
             " x-fold" if rev else " y-fold")
         return f"{form} [{src.shape[0]}, {src.shape[1]}]"
+    if name == "circle_fft":
+        src, interp, log_n = args[:3]
+        return (f"{'interpolate' if interp else 'evaluate'} [{src.shape[0]}, "
+                f"{1 << log_n}] from K={src.shape[1]}")
     return f"M={args[0].shape[1]} R={args[0].shape[0]}"
 
 
@@ -1651,6 +1712,10 @@ def k7_plain(name, args, key_size=None, groups=None):
         return blake2s.tree_strided_plain(*args[:5])
     if name == "circle_layer":
         return circle.layer_plain(*args)
+    if name == "circle_fft":
+        src, interp, log_n = args[:3]
+        fft = circle.CircleFFT(log_n)
+        return fft.interpolate_plain(src) if interp else fft.evaluate_plain(src)
     if name == "aes_composition":
         return k7d_plain(key_size, *args)
     vals, idx, off, n, weights, vn_inv = args[:6]
@@ -1659,8 +1724,7 @@ def k7_plain(name, args, key_size=None, groups=None):
     return prover._composition_plain(vals, groups, weights, vn_inv)
 
 
-def k7d_plain(key_size, vals, perm, idx, off, n, rows, bounds, za, weights,
-              vn_inv):
+def k7d_plain(key_size, vals, perm, table, za, weights, vn_inv):
     """_composition_plain on one K7d call's inputs, over the AES AIR of
     key_size."""
     from zksc_tpu_torch.stark import aes_air, aes_prover
@@ -1669,15 +1733,15 @@ def k7d_plain(key_size, vals, perm, idx, off, n, rows, bounds, za, weights,
 
 
 class StarkRecorder:
-    """Wraps stark_kernels' five launchers (the wrapped functions run
+    """Wraps stark_kernels' six launchers (the wrapped functions run
     unchanged); while `window` is set it keeps every call, in order, with
     its arguments (`log`), holding its inputs. key_size: the AES AIR's of
     the recorded proof (for K7d's plain version); groups: K7c's index
     groups of the recorded proof's AIR (default the stark engine's
     chacha20 AIR)."""
 
-    NAMES = ("blake2s", "blake2s_tree", "circle_layer", "composition",
-             "aes_composition")
+    NAMES = ("blake2s", "blake2s_tree", "circle_layer", "circle_fft",
+             "composition", "aes_composition")
 
     def __init__(self, key_size=None, groups=None):
         from zksc_tpu_torch.ops import stark_kernels
@@ -1812,6 +1876,8 @@ def check_stark_kernels(device, imad_rate):
     err = check_k7a(device, words, imad_rate)
     for log_n in (3, 6, 8, 10, 11, 16, 20):
         fft = circle.CircleFFT(log_n)
+        route = ("circle_fft, 1 launch" if log_n <= stark_kernels.FFT_MAX_LOG
+                 else f"circle_layer, {log_n} launches")
         for C in (1, min(4096, (1 << 28) >> log_n)):
             x = m31(C, 1 << log_n)
             for what, run, plain in (
@@ -1823,10 +1889,11 @@ def check_stark_kernels(device, imad_rate):
                                           plain, lambda r: [r])
                 err = max(err, e)
                 log(f"phase 3 K7b {what} [{C}, 2^{log_n}]: kernel {ms:.4f} ms "
-                    f"({log_n} launches), plain {plain_ms:.1f} ms, equal")
+                    f"({route}), plain {plain_ms:.1f} ms, equal")
             if not torch.equal(fft.evaluate(fft.interpolate(x)), x):
                 raise AssertionError(f"K7b round trip 2^{log_n} x {C}")
         del fft, x
+    err = max(err, check_k7b_shapes(device, m31, imad_rate))
     n_comm, groups = chacha_air.layout()
     R, M = n_comm + chacha_air.N_PUBLIC + 1, 1024
     vals, vn_inv = m31(R, M), m31(M)
@@ -1840,17 +1907,99 @@ def check_stark_kernels(device, imad_rate):
         f"values; slice, points a thread, threads a block "
         f"{stark_kernels.composition_plan(M)}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.1f} ms, equal")
-    return max(err, e, check_stwo_shapes(device, m31), check_k7d(device, m31))
+    return max(err, e, check_stwo_shapes(device, m31),
+               check_k7d(device, m31, imad_rate))
+
+
+def k7b_lde_shapes():
+    """(label, interp, C, log_n, K) of every K7b transform the proofs of
+    phases 9-11 make, and the largest one-launch size: the stark chacha20
+    LDE (chunk N = 64 -> M = 1,024, record 256 -> 2,048; the evaluation
+    from N + 50 blinding coefficients rounded up to a multiple of 4), both
+    AES LDEs (phase 1: the trace and public columns, phase 2: the
+    interaction's; N = 256 -> 2,048 at the chunk, 1,024 -> 8,192 at the 16
+    KiB record), stwo's (the trace's interpolate and evaluate, the
+    composition's interpolate at 2n), and 2^15 (the AES prover's LDE at
+    its MAX_LOG_ROWS, fewer columns)."""
+    from zksc_tpu_torch.stark import aes_air, chacha_air, prover
+    from zksc_tpu_torch.stark.stwo_compat import air
+    cols = chacha_air.layout()[0] + chacha_air.N_PUBLIC
+    k = lambda n: -(-(n + prover.ZK_COEFFS) // 4) * 4
+    out = []
+    for tag, log_n, log_m in (("chunk", 6, 10), ("record", 8, 11)):
+        out += [(f"stark chacha20 {tag}", True, cols, log_n, 1 << log_n),
+                (f"stark chacha20 {tag}", False, cols + 1, log_m, k(1 << log_n))]
+    for key_size, tag, log_n in ((16, "chunk", 8), (32, "record", 10)):
+        n1, n2, _ = aes_air.layout(key_size)
+        for phase, c in ((1, n1 + aes_air.N_PUB), (2, n2)):
+            label = f"stark aes-{8 * key_size} {tag} phase {phase}"
+            out += [(label, True, c, log_n, 1 << log_n),
+                    (label, False, c + 1, log_n + 3, k(1 << log_n))]
+    for tag, ls in (("chunk", 4), ("record", 8)):
+        out += [(f"stwo {tag}", True, air.N_COLS, ls, 1 << ls),
+                (f"stwo {tag}", False, air.N_COLS + 1, ls + 1, 1 << ls),
+                (f"stwo {tag} composition", True, 4, ls + 1, 1 << (ls + 1))]
+    out += [("largest one launch", True, 2048, 15, 1 << 15),
+            ("largest one launch", False, 2049, 15, k(4096))]
+    return out
+
+
+def check_k7b_shapes(device, m31, imad_rate):
+    """Phase 3 for K7b at every LDE shape of phases 9-11 and at 2^15
+    (k7b_lde_shapes): the one-launch transform (circle_fft) equal to the
+    plain version, timed beside its bound and beside the per-layer route
+    (circle_layer, one launch a layer, on the same values zero-extended)
+    in the same call; then a transform above 2^FFT_MAX_LOG, which takes the
+    per-layer route. Returns the max_abs_err (0)."""
+    import torch
+    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.stark import circle
+    err = 0
+    for label, interp, C, log_n, K in k7b_lde_shapes():
+        fft = circle.CircleFFT(log_n)
+        x = m31(C, K)
+        what = "interpolate" if interp else "evaluate"
+        tw = fft.twiddles(device)["fft_interp" if interp else "fft_eval"]
+        run = lambda: stark_kernels.circle_fft(x, interp, log_n, tw)
+        full = fft._zero_extend(x)
+        layers = lambda: fft._transform(full, interp, stark_kernels.circle_layer)
+        plain = lambda: fft._plain(full, interp)
+        ms, plain_ms, e = compare(f"K7b {label} {what}", run, plain, lambda r: [r])
+        err = max(err, e)
+        want = run()
+        if not torch.equal(layers(), want):
+            raise AssertionError(f"K7b {label} {what}: the per-layer route differs")
+        layer_ms = cuda_ms(layers, reps=5)
+        paced = cuda_ms(run, reps=3, paced=True)
+        bound, by, work = k7_bound_ms("circle_fft", (x, interp, log_n, tw), imad_rate)
+        log(f"phase 3 K7b {label} {what} [{C}, 2^{log_n}] from K={K}: "
+            f"circle_fft {ms:.4f} ms ({paced:.4f} ms paced by the host); "
+            f"circle_layer {layer_ms:.4f} ms in {log_n} launches; bound "
+            f"{bound:.4f} ms ({by}; {work}); plain {plain_ms:.1f} ms; all equal")
+        del x, full
+    fft = circle.CircleFFT(stark_kernels.FFT_MAX_LOG + 1)
+    x = m31(64, fft.n)
+    before = stark_kernels.LAUNCHES["circle_layer"]
+    got = fft.evaluate(x[:, :fft.n // 8])
+    if stark_kernels.LAUNCHES["circle_layer"] - before != fft.log_n:
+        raise AssertionError("K7b above the limit: not one launch a layer")
+    e = max_abs_diff([got], [fft.evaluate_plain(x[:, :fft.n // 8])])
+    if e:
+        raise AssertionError(f"K7b above the limit: kernel != plain ({e})")
+    log(f"phase 3 K7b above 2^{stark_kernels.FFT_MAX_LOG}: evaluate [64, "
+        f"2^{fft.log_n}] from K={fft.n // 8} through circle_layer, "
+        f"{fft.log_n} launches, equal to the plain version")
+    return err
 
 
 def check_stwo_shapes(device, m31):
     """Phase 3 at the stark-stwo engine's shapes: K7c over its AIR's groups
     (54,784 constraints, R = 33,281) at M = 32 (the 128-byte chunk) and 512
-    (the 16 KiB record), and K7b interpolate [33,280, 16] and evaluate
-    [33,280, 32] (the chunk's), each equal to its plain version on random
-    values. Returns the max_abs_err (0)."""
+    (the 16 KiB record), each equal to its plain version on random values
+    (K7b's stwo shapes are check_k7b_shapes'). Returns the max_abs_err
+    (0)."""
     from zksc_tpu_torch.ops import stark_kernels
-    from zksc_tpu_torch.stark import circle, prover
+    from zksc_tpu_torch.stark import prover
     from zksc_tpu_torch.stark.stwo_compat import air
     from zksc_tpu_torch.stark.stwo_compat import prover as stwo_prover
     err = 0
@@ -1868,30 +2017,20 @@ def check_stwo_shapes(device, m31):
         log(f"phase 3 K7c composition on the stark-stwo AIR at M={M} (random "
             f"values; plan {stark_kernels.composition_plan(M)}): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
-    for log_n, what in ((4, "interpolate"), (5, "evaluate")):
-        fft = circle.CircleFFT(log_n)
-        x = m31(air.N_COLS, 1 << log_n)
-        run, plain = ((lambda: fft.interpolate(x), lambda: fft.interpolate_plain(x))
-                      if what == "interpolate" else
-                      (lambda: fft.evaluate(x), lambda: fft.evaluate_plain(x)))
-        ms, plain_ms, e = compare(f"K7b stwo {what} 2^{log_n}", run, plain,
-                                  lambda r: [r])
-        err = max(err, e)
-        log(f"phase 3 K7b {what} [{air.N_COLS}, 2^{log_n}] (stark-stwo): kernel "
-            f"{ms:.4f} ms ({log_n} launches), plain {plain_ms:.1f} ms, equal")
     return err
 
 
-def check_k7d(device, m31):
+def check_k7d(device, m31, imad_rate):
     """Phase 3 for K7d: equal to its plain version on random values,
-    challenges and weights at the AES-128 and AES-256 chunk shapes (log_rows
-    8, M = 2,048) and the AES-256 16 KiB record's (log_rows 10, M = 8,192),
-    sigma as the prover's. Returns the max_abs_err (0)."""
-    import numpy as np
+    challenges and weights at the AES-128 and AES-256 80-byte chunks'
+    shape (log_rows 8, M = 2,048) and 16 KiB records' (log_rows 10, M =
+    8,192), sigma as the prover's, in the launch shape the wrapper picks
+    (aes_composition_plan: points a thread, threads a block, grid order),
+    timed beside its bound. Returns the max_abs_err (0)."""
     from zksc_tpu_torch.ops import stark_kernels
     from zksc_tpu_torch.stark import aes_air, aes_prover
     err = 0
-    for key_size, log_rows in ((16, 8), (32, 8), (32, 10)):
+    for key_size, log_rows in ((16, 8), (32, 8), (16, 10), (32, 10)):
         n1, n2, groups = aes_air.layout(key_size)
         _, M, _ = aes_prover._domain_params(log_rows)
         vals, vn_inv = m31(n1 + n2 + aes_air.N_PUB + 1, M), m31(M)
@@ -1899,16 +2038,24 @@ def check_k7d(device, m31):
         weights = m31(aes_prover.n_constraints(key_size), 4)
         za = tuple(int(v) for v in m31(8).cpu())
         perm = aes_prover._sigma_on(log_rows, device)
-        idx, off, n, rows, bounds = aes_prover._groups_on(key_size, device)
-        args = (vals, perm, idx, off, n, rows, bounds, za, weights, vn_inv)
+        table = aes_prover._groups_on(key_size, device)
+        args = (vals, perm, table, za, weights, vn_inv)
         ms, plain_ms, e = compare(
             f"K7d AES-{8 * key_size} M={M}",
             lambda: stark_kernels.aes_composition(*args),
             lambda: k7d_plain(key_size, *args), lambda r: [r])
-        log(f"phase 3 K7d aes_composition on the AES-{8 * key_size} AIR at "
-            f"M={M} ({bounds.numel() - 1} slices, random values): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, equal")
         err = max(err, e)
+        points, threads, first = stark_kernels.aes_composition_plan(M)
+        paced = cuda_ms(lambda: stark_kernels.aes_composition(*args), reps=3,
+                        paced=True)
+        bound, by, work = k7_bound_ms("aes_composition", args, imad_rate)
+        log(f"phase 3 K7d aes_composition on the AES-{8 * key_size} AIR at "
+            f"M={M} ({table[0].shape[0]} slices, {points} points a thread, "
+            f"{threads} threads a block, random values): kernel {ms:.4f} ms "
+            f"({paced:.4f} ms paced by the host; "
+            f"{'slices' if first else 'point tiles'} first); "
+            f"bound {bound:.4f} ms ({by}; {work}); plain {plain_ms:.1f} ms, "
+            f"equal")
         del vals, args
     return err
 
@@ -1957,6 +2104,14 @@ def sweep_merkle_crossover(device):
             f"{merkle.DEVICE_MIN_LEAVES})")
 
 
+def k7b_launches(label: str, launches: dict, want: int):
+    """K7b must run one launch a transform on the proofs' shapes (all below
+    2^FFT_MAX_LOG): `want` launches under its key."""
+    if launches["circle_layer"] != want:
+        raise AssertionError(f"{label}: {launches['circle_layer']} K7b launches, "
+                             f"expected {want} (one a transform)")
+
+
 def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
     """Phase 9: the stark engine on the card. Returns the warm API proof's
     launch counts."""
@@ -1993,6 +2148,7 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the warm "
                                  f"stark proof")
+    k7b_launches("phase 9 warm chunk", launches, K7B_LAUNCHES["stark chacha20"])
     with rec_api:                      # proof 3, its K7 calls kept for phase 5
         rec_api.window = True
         api.generate_proof("chacha20", key, ct, iv, engine="stark",
@@ -2037,6 +2193,7 @@ def drive_stark(api, reset_counts, counts, rec_api, rec_record) -> dict:
             f"device memory {peak / 2**30:.3f} GiB")
     if min(rl[k] for k in CHACHA_K7) <= 0:
         raise AssertionError("a K7 kernel was not launched by the record proof")
+    k7b_launches("phase 9 record", rl, K7B_LAUNCHES["stark chacha20"])
     with rec_record:                   # proof 3, its K7 calls kept for phase 5
         rec_record.window = True
         sp.prove_stream(key, iv, 1, pt, rct, device="cuda")
@@ -2102,6 +2259,7 @@ def drive_stark_aes(api, reset_counts, counts, recs) -> dict:
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched by the warm "
                                      f"{alg} stark proof")
+        k7b_launches(f"phase 10 {alg} warm chunk", launches, K7B_LAUNCHES["stark aes"])
         if alg == "aes-128-ctr":
             main_launches = launches
         rec = recs.get(f"stark {alg} 80 B")
@@ -2153,6 +2311,7 @@ def drive_stark_aes(api, reset_counts, counts, recs) -> dict:
         if min(rl[k] for k in AES_K7) <= 0:
             raise AssertionError(f"a K7 kernel was not launched by the {alg} "
                                  f"record proof")
+        k7b_launches(f"phase 10 {alg} record", rl, K7B_LAUNCHES["stark aes"])
         rec = recs.get(f"stark {alg} 16 KiB")
         if rec is not None:            # proof 3, its K7 calls kept for phase 5
             with rec:
@@ -2245,6 +2404,7 @@ def drive_stwo(api, reset_counts, counts, rec_api, rec_record) -> dict:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the warm "
                                  f"stark-stwo proof")
+    k7b_launches("phase 11 warm chunk", launches, K7B_LAUNCHES["stark-stwo"])
     with rec_api:                      # proof 3, its K7 calls kept for phase 5
         rec_api.window = True
         env3 = api.generate_proof("chacha20", key, ct, iv, engine="stark-stwo",
@@ -2294,6 +2454,7 @@ def drive_stwo(api, reset_counts, counts, rec_api, rec_record) -> dict:
         if min(rl[k] for k in CHACHA_K7) <= 0:
             raise AssertionError("a K7 kernel was not launched by the stwo "
                                  "record proof")
+        k7b_launches(f"phase 11 record proof {i}", rl, K7B_LAUNCHES["stark-stwo"])
     with rec_record:                   # proof 3, its K7 calls kept for phase 5
         rec_record.window = True
         wp.prove_stream_bytes(key, iv, 1, pt, rct, device="cuda")
@@ -3201,10 +3362,12 @@ def stark_kernel_entries(rows, per_proof, launches, err):
         path = K7_MAIN_PATH[name]
         main = max((r for r in mine if r["path"] == path),
                    key=lambda r: r["bound_ms"])
+        replaces = (K7B_EVALUATE_REPLACES if main["variant"].startswith("evaluate")
+                    else K7_REPLACES[main["name"]])
         entries.append({
             "name": name, "route": "cuda",
             "source": "zksc_tpu_torch/csrc/stark_kernels.cu",
-            "replaces": K7_REPLACES[main["name"]],
+            "replaces": replaces, "launcher": main["name"],
             "launches": launches[path][name],
             "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -92,13 +92,18 @@ def test_sigma_perm_and_cum_column_match_reference(m, s):
 
 
 def test_aes_slices_cover_items_in_order():
-    """K7d's slices partition its items, none over the gather budget except
-    an item that alone exceeds it (the cum item)."""
+    """K7d's slices partition its items (the cum sum cut into a cumlk item
+    a lookup), none over the gather budget."""
     _, _, groups = aes_air.layout(16)
     idx, off, n, rows = stark_kernels.pack_aes_groups(groups)
     b = stark_kernels.aes_slices(n)
-    items = n[0] + n[1] + n[2] + n[3] + n[4] + 2 + n[5]
+    items = n[0] + n[1] + n[2] + n[3] + 2 * n[4] + 2 + n[5]
     assert b[0] == 0 and b[-1] == items and (np.diff(b) > 0).all()
+    counts, gathers = stark_kernels.aes_item_counts(n), stark_kernels.aes_item_gathers()
+    costs = np.concatenate([np.full(counts[k], gathers[k])
+                            for k in stark_kernels.AES_KINDS])
+    per_slice = np.add.reduceat(costs, b[:-1])
+    assert per_slice.max() <= stark_kernels.AES_SLICE_GATHERS
     assert stark_kernels.aes_n_constraints(n) == tp.n_constraints(16)
     assert idx.size == off[-1] + 3 * n[-1]
     assert rows[:4] == (int(groups["table"]["M"]), int(groups["table"]["TVAL"]),

@@ -82,3 +82,43 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         stark_kernels.circle_layer(torch.zeros((1, 8), dtype=torch.int32),
                                    True, False, 2, fft.twiddles("cpu")["inv_y"])
+
+
+@pytest.mark.parametrize("log_n, log_m, n_blinded", [(3, 6, 2), (4, 7, 0)])
+def test_lde_short_block_matches_jax(log_n, log_m, n_blinded, monkeypatch):
+    """The stark prover's _lde evaluates from a [rows + 1, K] coefficient
+    block (K = N + ZK_COEFFS rounded up to a multiple of 4 with blinding, N
+    without) instead of a zero-filled [rows + 1, M] one: its values equal
+    the JAX package's interpolate, then evaluate of the [rows, M] block
+    with the blinding coefficients at [N, N + ZK_COEFFS), on the same
+    seeded columns; the last row is zero."""
+    from zksc_tpu_torch.stark import prover as tp
+    n, m, zk = 1 << log_n, 1 << log_m, tp.ZK_COEFFS
+    rng = np.random.default_rng(10 + log_n)
+    cols = rng.integers(0, tc.P31, (5, n)).astype(np.uint32)
+    blind = rng.integers(0, 1 << 32, (n_blinded, zk), dtype=np.uint64).astype(np.uint32)
+    fft_n, fft_m = tc.CircleFFT(log_n), tc.CircleFFT(log_m)
+    shapes, evaluate = [], fft_m.evaluate
+    monkeypatch.setattr(fft_m, "evaluate",
+                        lambda c: shapes.append(tuple(c.shape)) or evaluate(c))
+    got = tp._lde(fft_n, fft_m, cols, n_blinded, blind, "cpu")
+    assert shapes == [(6, -(-(n + zk) // 4) * 4 if n_blinded else n)]
+    jn, jm = jc.CircleFFT(log_n), jc.CircleFFT(log_m)
+    cm = np.zeros((5, m), dtype=np.uint32)
+    cm[:, :n] = np.asarray(jax.vmap(jn.interpolate)(jnp.asarray(cols)))
+    cm[:n_blinded, n:n + zk] = blind % tc.P31
+    want = np.asarray(jax.vmap(jm.evaluate)(jnp.asarray(cm)))
+    np.testing.assert_array_equal(got[:5].numpy().astype(np.uint32), want)
+    assert not got[5].any()
+
+
+def test_evaluate_short_block_matches_jax():
+    """CircleFFT.evaluate of [C, K < N] coefficients (the rest zero) equals
+    the JAX package's evaluate of the zero-extended [C, N] block."""
+    ref, got = jc.CircleFFT(6), tc.CircleFFT(6)
+    x = np.random.default_rng(6).integers(0, tc.P31, (3, 20)).astype(np.uint32)
+    full = np.zeros((3, 64), dtype=np.uint32)
+    full[:, :20] = x
+    np.testing.assert_array_equal(
+        got.evaluate(torch.from_numpy(x.astype(np.int32))).numpy().astype(np.uint32),
+        np.asarray(jax.vmap(ref.evaluate)(jnp.asarray(full))))

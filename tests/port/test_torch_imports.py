@@ -172,10 +172,13 @@ def test_aes_composition_wrapper_refuses_cpu_tensors():
     from zksc_tpu_torch.ops import stark_kernels
     from zksc_tpu_torch.stark import aes_air
     idx, off, n, rows = stark_kernels.pack_aes_groups(aes_air.layout(16)[2])
+    hdr, srows = stark_kernels.aes_slice_table(idx, off, n, rows,
+                                               stark_kernels.aes_slices(n))
     vals = torch.zeros((max(rows) + 1, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         stark_kernels.aes_composition(
-            vals, torch.arange(8, dtype=torch.int32), torch.from_numpy(idx),
-            off, n, rows, torch.tensor([0, 1]), (0,) * 8,
+            vals, torch.arange(8, dtype=torch.int32),
+            (torch.from_numpy(hdr), torch.from_numpy(srows), n, int(srows.max())),
+            (0,) * 8,
             torch.zeros((stark_kernels.aes_n_constraints(n), 4), dtype=torch.int32),
             torch.zeros(8, dtype=torch.int32))

@@ -29,6 +29,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,6 +66,7 @@ SHIM = r'''
 #define __forceinline__ inline
 #define __noinline__
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __shared__ static
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
@@ -222,8 +224,8 @@ def _translate(src: str) -> str:
                lambda m: "zk_launch(%s, [&](){ %s(%s); });" % (
                    ", ".join(a.strip() for a in m.group(2).split(",")[:3]),
                    m.group(1).strip(), m.group(3)), s)
-    s = s.replace("extern __shared__ uint32_t smem[];",
-                  "uint32_t* smem = (uint32_t*)dyn_smem();")
+    s = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+               r"\1* \2 = (\1*)dyn_smem();", s)
     return s.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
 
 
@@ -579,6 +581,72 @@ def test_k7b_emulated(stark_emu, log_n):
         assert torch.equal(got, fft._plain(x, interp))
 
 
+def _m31_cols(rng, C, n):
+    return torch.from_numpy(rng.integers(0, (1 << 31) - 1, (C, n)).astype(np.int32))
+
+
+@pytest.mark.parametrize("log_n", [2, 3, 4, 5, 6])
+def test_k7b_fft_emulated(stark_emu, log_n):
+    """K7b's one-launch transform at N = 4-64 (one column a 1-16-thread
+    group, 16-256 columns a block) over a ragged last block: interpolate
+    and evaluate (K = N), the x-layers two at a time and an odd one alone
+    (log N - 1 x-layers: one at N = 4, a pair at 8, a pair and one at 16),
+    equal to the plain versions; interpolate then evaluate gives back the
+    input; each one launch."""
+    fft = circle.CircleFFT(log_n)
+    N = 1 << log_n
+    C = 1024 // N + 3                         # a block and a ragged one
+    x = _m31_cols(np.random.default_rng(log_n), C, N)
+    x[0, :3] = torch.tensor([0, 1, (1 << 31) - 2], dtype=torch.int32)
+    for interp in (True, False):
+        before = stark_emu.LAUNCHES["circle_layer"]
+        got = fft._kernels(x, interp)
+        assert stark_emu.LAUNCHES["circle_layer"] == before + 1
+        assert torch.equal(got, fft._plain(x, interp))
+    assert torch.equal(fft._kernels(fft._kernels(x, True), False), x)
+
+
+@pytest.mark.parametrize("K", [0, 1, 3, 8, 12, 16, 17, 31, 32])
+def test_k7b_fft_emulated_short(stark_emu, K):
+    """Evaluate from K < N = 32 coefficients a column (the rest zero: the
+    x-layers whose upper half is zero copy), with 16-byte loads (K a
+    multiple of 4) and without (K odd, or the input at a 4-byte offset):
+    equal to the plain version of the zero-extended input."""
+    fft = circle.CircleFFT(5)
+    rng = np.random.default_rng(K)
+    x = _m31_cols(rng, 19, K)
+    full = torch.zeros((19, 32), dtype=torch.int32)
+    full[:, :K] = x
+    want = fft._plain(full, False)
+    assert torch.equal(fft._kernels(x, False), want)
+    assert torch.equal(fft.evaluate_plain(x), want)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32), x.reshape(-1)])
+    shifted = flat[1:].view(19, K)            # data_ptr 4 bytes past alignment
+    assert torch.equal(fft._kernels(shifted, False), want)
+
+
+def test_k7b_shape_rule(stark_emu, monkeypatch):
+    """CircleFFT takes one circle_fft launch up to 2^FFT_MAX_LOG values and
+    one circle_layer launch a layer above it (the limit lowered to 2^4
+    here, so N = 32 takes the layer route), with the same values; the
+    layer route zero-extends a short coefficient block."""
+    monkeypatch.setattr(stark_kernels, "FFT_MAX_LOG", 4)
+    calls = []
+    for name in ("circle_fft", "circle_layer"):
+        fn = getattr(stark_kernels, name)
+        monkeypatch.setattr(stark_kernels, name,
+                            lambda *a, _n=name, _f=fn: calls.append(_n) or _f(*a))
+    rng = np.random.default_rng(5)
+    for log_n, route, n_launch in ((4, "circle_fft", 1), (5, "circle_layer", 5)):
+        fft = circle.CircleFFT(log_n)
+        x = _m31_cols(rng, 6, 1 << log_n)
+        for interp, src in ((True, x), (False, x), (False, x[:, :12].contiguous())):
+            calls.clear()
+            got = fft._kernels(src, interp)
+            assert calls == [route] * n_launch
+            assert torch.equal(got, fft._plain(fft._zero_extend(src), interp))
+
+
 def test_k7c_emulated(stark_emu):
     """K7c on the chacha20 AIR's index groups (53,504 constraints in 1,672
     slices of 32) at M = 32 random values, weights and V_N inverses: equal
@@ -618,17 +686,10 @@ def test_k7c_emulated_stwo_layout(stark_emu):
                                                             weights, vn_inv))
 
 
-@pytest.mark.parametrize("key_size", [16, 32])
-def test_k7d_emulated(stark_emu, key_size):
-    """K7d on the AES AIR's index groups (AES-128: 11,272 constraints in
-    ~120 slices cut by gathers; AES-256: 15,624) at M = 32 (N = 8, so sigma
-    shifts by 4 points) on random values, challenges, weights and V_N
-    inverses: equal to _composition_plain, which covers the sigma gather,
-    the interleaved lookup weights and the cum sum formed in one slice."""
-    import numpy as np
+def _k7d_inputs(key_size, M, seed):
     n1, n2, groups = aes_air.layout(key_size)
-    rng = np.random.default_rng(key_size)
-    R, M = n1 + n2 + aes_air.N_PUB + 1, 32
+    rng = np.random.default_rng(seed)
+    R = n1 + n2 + aes_air.N_PUB + 1
     rand = lambda *shape: torch.from_numpy(
         rng.integers(0, (1 << 31) - 1, shape).astype(np.int32))
     vals, vn_inv = rand(R, M), rand(M)
@@ -636,10 +697,82 @@ def test_k7d_emulated(stark_emu, key_size):
     weights = rand(aes_prover.n_constraints(key_size), 4)
     za = tuple(int(v) for v in rng.integers(0, (1 << 31) - 1, 8))
     perm = torch.from_numpy(aes_air.sigma_perm(M, M // 8))
-    idx, off, n, rows = stark_kernels.pack_aes_groups(groups)
-    bounds = torch.from_numpy(stark_kernels.aes_slices(n))
-    got = stark_emu.aes_composition(vals, perm, torch.from_numpy(idx), off, n,
-                                    rows, bounds, za, weights, vn_inv)
     want = aes_prover._composition_plain(vals, perm, groups, za[:4], za[4:],
                                          weights, vn_inv)
-    assert torch.equal(got, want)
+    return (vals, perm, aes_prover._groups_on(key_size, torch.device("cpu")),
+            za, weights, vn_inv), want
+
+
+@pytest.mark.parametrize("key_size", [16, 32])
+def test_k7d_emulated(stark_emu, key_size):
+    """K7d on the AES AIR's index groups (AES-128: 11,272 constraints in
+    the slices aes_slices cuts by gathers, the cum sum spread over 160
+    cumlk items; AES-256: 15,624) at M = 32 (N = 8, so sigma shifts by 4
+    points) on random values, challenges, weights and V_N inverses, in the
+    plan the wrapper picks: equal to _composition_plain, which covers the
+    sigma gather, the interleaved lookup weights and the split cum sum."""
+    args, want = _k7d_inputs(key_size, 32, key_size)
+    assert torch.equal(stark_emu.aes_composition(*args), want)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["off32", "off64"])
+@pytest.mark.parametrize("slices_first", [False, True], ids=["tiles", "slices"])
+@pytest.mark.parametrize("M", [32, 64, 512])
+def test_k7d_emulated_plans(stark_emu, monkeypatch, M, slices_first, wide):
+    """K7d at each points-a-thread form aes_composition_plan picks: M = 32
+    (one point, scalar gathers, a warp tile), 64 (two, 8-byte gathers) and
+    512 (four, 16-byte gathers, a 128-thread tile; one value a point at
+    sigma x in each), in both grid orders (AES_SLICES_FIRST_TILES lowered
+    to 1 for the slices of a tile first), with 32-bit gather offsets (the
+    rows times M staged) and 64-bit ones (WIDE_OFFSETS_FROM lowered to 0),
+    over the AES-128 AIR: equal to _composition_plain."""
+    if wide:
+        monkeypatch.setattr(stark_kernels, "WIDE_OFFSETS_FROM", 0)
+    if slices_first:
+        monkeypatch.setattr(stark_kernels, "AES_SLICES_FIRST_TILES", 1)
+    points, threads = {32: (1, 32), 64: (2, 32), 512: (4, 128)}[M]
+    assert stark_kernels.aes_composition_plan(M) == (points, threads, slices_first)
+    args, want = _k7d_inputs(16, M, M + points)
+    assert torch.equal(stark_emu.aes_composition(*args), want)
+
+
+def test_k7d_plan_by_shape():
+    """aes_composition_plan at the AES paths' M: four points a thread in
+    128-thread tiles from M = 512 (composition_plan's); the point tiles of
+    a slice first while the tiles are few (M = 2,048: 4), the slices of a
+    tile first from AES_SLICES_FIRST_TILES tiles (M = 8,192: 16)."""
+    plan = stark_kernels.aes_composition_plan
+    assert plan(2048) == (4, 128, False)
+    assert plan(8192) == (4, 128, True)
+    assert plan(32768) == (4, 128, True)
+
+
+def test_k7d_slice_table():
+    """aes_slice_table: each slice stages its items' rows kind by kind
+    (field-major), within AES_ROWS_MAX, and names weight rows that cover
+    its items' (a lookup's four, the cum column's four for cum and every
+    cumlk); the cumlk items of the AES-128 AIR fall into several slices,
+    each slice gathering no more than AES_SLICE_GATHERS values."""
+    _, _, groups = aes_air.layout(16)
+    idx, off, n, rows = stark_kernels.pack_aes_groups(groups)
+    bounds = stark_kernels.aes_slices(n)
+    hdr, srows = stark_kernels.aes_slice_table(idx, off, n, rows, bounds)
+    kinds = stark_kernels.AES_KINDS
+    assert hdr.shape == (len(bounds) - 1, stark_kernels.AES_HDR)
+    assert hdr[:, 1].sum() == srows.size and (hdr[:, 1] <= stark_kernels.AES_ROWS_MAX).all()
+    assert (np.diff(hdr[:, 0]) == hdr[:-1, 1]).all()
+    cumlk = kinds.index("cumlk")
+    assert (hdr[:, 4 + 3 * cumlk] > 0).sum() >= 2
+    assert hdr[:, 4 + 3 * cumlk].sum() == n[4]
+    K = stark_kernels.aes_n_constraints(n)
+    assert hdr[:, 2].min() >= 0 and (hdr[:, 2] + hdr[:, 3]).max() == K
+    gathers = stark_kernels.aes_item_gathers()
+    per_slice = sum(hdr[:, 4 + 3 * k] * gathers[name] for k, name in enumerate(kinds))
+    assert per_slice.max() <= stark_kernels.AES_SLICE_GATHERS
+    s = int(np.argmax(hdr[:, 4 + 3 * kinds.index("lookup")] > 0))
+    h = hdr[s]
+    k = kinds.index("lookup")
+    cnt, rb = h[4 + 3 * k], h[5 + 3 * k]
+    lk0 = max(bounds[s], sum(n[:4])) - sum(n[:4])    # its first lookup
+    F0 = idx[off[4] + 16 * n[4] + lk0]
+    assert srows[h[0] + rb + 16 * cnt] == F0

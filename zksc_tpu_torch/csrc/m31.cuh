@@ -34,4 +34,16 @@ __device__ __forceinline__ uint32_t m31_mul(uint32_t a, uint32_t b) {
   return m31_red((uint64_t)a * b);
 }
 
+__device__ __forceinline__ uint32_t umin32(uint32_t a, uint32_t b) { return a < b ? a : b; }
+
+// a * b mod p where a * b < 2^62 - 1 (canonical a, b, or b (2^31 - b)):
+// lo + hi (2^31 = 1) is then below 2p and one subtraction is left, taken
+// as the smaller of s and s - p (which wraps when s < p). Five issue slots
+// on sm_90a against m31_mul's ten.
+__device__ __forceinline__ uint32_t m31_mulc(uint32_t a, uint32_t b) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t s = ((uint32_t)t & kP31) + (uint32_t)(t >> 31);
+  return umin32(s, s - kP31);
+}
+
 }  // namespace zksc

@@ -25,11 +25,23 @@
 //    8-500x lower and out of reach with 32-2,048 leaves. (A producer warp
 //    staging the words into a shared-memory ring by cp.async.bulk was
 //    measured 1-3% slower than these direct loads, PERF.md.)
-// K7b circle_layer -- zksc_tpu/stark/circle.py:CircleFFT.interpolate /
-//    evaluate: one fold layer of the circle FFT over a batch of C columns of
-//    N values (the y-fold or an x-fold through pi(x) = 2x^2 - 1), one thread
-//    per butterfly, reading and writing the batch in device memory; one
-//    launch per layer. Bound: bytes (each layer reads and writes the batch).
+// K7b circle_fft / circle_layer -- zksc_tpu/stark/circle.py:
+//    CircleFFT.interpolate / evaluate over a batch of C columns of N values
+//    (the y-fold and the x-folds through pi(x) = 2x^2 - 1). A column is at
+//    most 128 KB up to N = 2^15, so circle_fft_kernel runs a whole transform
+//    in one launch: a block loads its columns once (16-byte loads), runs
+//    every layer in shared memory and stores once; small N puts several
+//    columns in a block. The x-layers go two at a time: a thread reads four
+//    values, folds them through both layers in registers, meets the block
+//    at a barrier and writes them in place (the y-layer and an odd x-layer
+//    alone, two values a butterfly). Evaluate reads only the K <= N
+//    coefficients that can be non-zero (the LDE's N + 50) and skips the
+//    arithmetic of the x-layers whose upper half is still zero. Bound: the
+//    butterflies' integer operations (12-15 issue slots each; a canonical
+//    M31 product is 5), not the bytes, which are read and written once;
+//    the index arithmetic and shared-memory traffic come on top. Above
+//    2^15 circle_layer_kernel runs one launch a layer, one thread a
+//    butterfly, through device memory (bound: bytes).
 // K7c composition -- zksc_tpu/stark/prover.py:_composition: for every LDE
 //    point x, sum_k w_k * c_k(x) over the AIR's constraints (bool, add, addx,
 //    xor, eq, in that order) with QM31 weights w_k, then times V_N(x)^-1.
@@ -49,17 +61,25 @@
 // K7d aes_composition -- zksc_tpu/stark/aes_prover.py:_composition: K7c's
 //    form for the AES-CTR LogUp AIR. An "item" is one bool, const, xor, mix
 //    or eq constraint, one lookup instance (its four QM31 constraints, with
-//    weights base + 4j + c), the table's four constraints or the cum
-//    column's four. Item kinds in alpha-power order: bool | const | xor |
-//    mix | lookup | table | cum | eq. The grid is point tiles x slices of
-//    consecutive items; the wrapper cuts the slices so that each gathers
-//    about the same number of values. The sigma-shifted values (const and
-//    cum) are read as vals[row, perm[x]] in place, not from a shifted copy
-//    of vals. The cum item forms sum_j F_j(sigma x) over every lookup
-//    instance itself, so the sum is formed once per point in whichever
-//    slice holds that item. The summing launch is K7c's. Bound: the gathered
-//    values (~30.5k a point for AES-128) or, if they all hit the caches, the
-//    integer operations.
+//    weights base + 4j + c) or the table's four constraints; the cum
+//    column's four are linear in their parts, so they are cut into a cum
+//    item (cum at x and sigma x, G at sigma x) and one cumlk item a lookup
+//    instance (its F columns at sigma x, subtracted). Item kinds in
+//    alpha-power order: bool | const | xor | mix | lookup | table | cum |
+//    cumlk | eq. The grid is slices of consecutive items (cut so that each
+//    gathers about 256 values) x point tiles; from 8 point tiles on (M =
+//    8,192) the slices go fastest, so blocks resident together share one
+//    tile's rows in L2, below it the tiles. A block first copies
+//    its slice's header, its items' rows (times M for 32-bit offsets) and
+//    its weight rows to shared memory (the host builds the table once,
+//    ops/stark_kernels.aes_slice_table). A thread takes one, two or four
+//    neighbouring points (composition_plan's choice by M: 4-, 8- or 16-byte
+//    gathers; the sigma-shifted values are read as vals[row, perm[x]] in
+//    place, one a point), issues the gathers of up to four items before it
+//    uses them, and multiply-adds each term into u64 components folded once
+//    every four terms. The summing launch is K7c's. Bound: integer
+//    operations (~30.5k values gathered a point for AES-128 at 10 issue
+//    slots a term), or the gathered bytes if they miss the caches.
 //
 // Values at the boundary are canonical M31 residues in int32 (read here as
 // uint32); the wrappers are ops/stark_kernels.py.
@@ -315,6 +335,240 @@ __global__ void __launch_bounds__(kStarkThreads)
   }
 }
 
+// ---- K7b's one-launch transform
+
+constexpr int kFftMaxLog = 15;                  // 2^15 values (128 KB) a column, at most
+constexpr int kFftMaxSmem = 4 << kFftMaxLog;    // the dynamic shared memory it asks for
+
+// a / 2 mod p for canonical a: (a + p) / 2 = (a >> 1) + 2^30 when a is odd
+__device__ __forceinline__ uint32_t m31_half(uint32_t a) {
+  return (a >> 1) | ((a & 1u) << 30);
+}
+
+// One layer of the transform on a column s[0, N) in shared memory, in
+// place: each thread reads its B butterflies' pairs (t = tc + i T) and
+// computes them, the block meets, the thread writes, the block meets.
+// Forms and twiddles (tw: the layer's 2^lw) as circle_layer_kernel, with
+// interpolate's twiddles pre-halved: (lo - hi) / 2 * tw = (lo - hi) * (tw / 2).
+template <bool INTERP, bool REV, int B>
+__device__ __forceinline__ void fft_layer(uint32_t* s, int half, int lw, int tc, int log_t,
+                                          const uint32_t* __restrict__ tw) {
+  const int w = 1 << lw;
+  uint32_t r0[B], r1[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    const int t = tc + (i << log_t);
+    const int j = t >> lw, p = t & (w - 1);
+    const uint32_t k = tw[p];
+    if (INTERP) {
+      const uint32_t lo = s[REV ? 2 * j * w + p : t];
+      const uint32_t hi = s[REV ? 2 * j * w + 2 * w - 1 - p : half + t];
+      r0[i] = m31_half(m31_add(lo, hi));
+      r1[i] = m31_mulc(m31_sub(lo, hi), k);
+    } else {
+      const uint32_t a = s[t];
+      const uint32_t kb = m31_mulc(k, s[half + t]);
+      r0[i] = m31_add(a, kb);
+      r1[i] = m31_sub(a, kb);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    const int t = tc + (i << log_t);
+    const int j = t >> lw, p = t & (w - 1);
+    const bool out_rev = !INTERP && REV;
+    s[out_rev ? 2 * j * w + p : t] = r0[i];
+    s[out_rev ? 2 * j * w + 2 * w - 1 - p : half + t] = r1[i];
+  }
+  __syncthreads();
+}
+
+// An evaluate x-layer whose upper half is zero (the column's values lie in
+// [0, ext), ext <= N / 2): b = 0, so the butterflies t < ext copy a to both
+// of their outputs and the rest write zeros over zeros. No arithmetic.
+template <int B>
+__device__ __forceinline__ void fft_spread(uint32_t* s, int ext, int lw, int tc, int log_t) {
+  const int w = 1 << lw;
+  uint32_t a[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    const int t = tc + (i << log_t);
+    a[i] = t < ext ? s[t] : 0u;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    const int t = tc + (i << log_t);
+    const int j = t >> lw, p = t & (w - 1);
+    if (t < ext) {
+      s[2 * j * w + p] = a[i];
+      s[2 * j * w + 2 * w - 1 - p] = a[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Two interpolate x-folds in one pass (widths w, then w / 2; w >= 2): unit
+// u = j w/2 + p (p < w/2) reads s[2jw + {p, w-1-p, w+p, 2w-1-p}], folds
+// the butterflies (j, p) and (j, w-1-p) of width w and then, in registers,
+// the two of width w/2 their results meet in, and writes s[u], s[half/2 +
+// u], s[half + u], s[3 half/2 + u]. tw, tw2: the two layers' twiddles.
+template <int U>
+__device__ __forceinline__ void fft_fold2(uint32_t* s, int half, int lw, int tc, int log_t,
+                                          const uint32_t* __restrict__ tw,
+                                          const uint32_t* __restrict__ tw2) {
+  const int w = 1 << lw, h = w >> 1;
+  uint32_t r[U][4];
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = tc + (i << log_t);
+    const int p = u & (h - 1);
+    const uint32_t* x = s + 2 * (u >> (lw - 1)) * w;
+    const uint32_t x0 = x[p], x1 = x[w - 1 - p], x2 = x[w + p], x3 = x[2 * w - 1 - p];
+    const uint32_t g0 = m31_half(m31_add(x0, x3)), g1 = m31_mulc(m31_sub(x0, x3), tw[p]);
+    const uint32_t g2 = m31_half(m31_add(x1, x2)), g3 = m31_mulc(m31_sub(x1, x2), tw[w - 1 - p]);
+    const uint32_t k = tw2[p];
+    r[i][0] = m31_half(m31_add(g0, g2));
+    r[i][1] = m31_mulc(m31_sub(g0, g2), k);
+    r[i][2] = m31_half(m31_add(g1, g3));
+    r[i][3] = m31_mulc(m31_sub(g1, g3), k);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = tc + (i << log_t);
+    s[u] = r[i][0];
+    s[half + u] = r[i][1];
+    s[(half >> 1) + u] = r[i][2];
+    s[half + (half >> 1) + u] = r[i][3];
+  }
+  __syncthreads();
+}
+
+// Two evaluate x-layers in one pass (widths w, then 2w; 2w <= N/4): unit u
+// = jw + p (p < w) reads s[u], s[half + u], s[half/2 + u], s[3 half/2 + u]
+// (the butterflies (j, p) and (j + half/2w, p) of width w), then the two
+// of width 2w their results meet in, and writes s[4jw + {p, 2w-1-p, 2w+p,
+// 4w-1-p}]. tw, tw2: the two layers' twiddles.
+template <int U>
+__device__ __forceinline__ void fft_spread2(uint32_t* s, int half, int lw, int tc, int log_t,
+                                            const uint32_t* __restrict__ tw,
+                                            const uint32_t* __restrict__ tw2) {
+  const int w = 1 << lw;
+  uint32_t r[U][4];
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = tc + (i << log_t);
+    const int p = u & (w - 1);
+    const uint32_t k = tw[p];
+    const uint32_t b0 = m31_mulc(k, s[half + u]), b2 = m31_mulc(k, s[half + (half >> 1) + u]);
+    const uint32_t a0 = s[u], a2 = s[(half >> 1) + u];
+    const uint32_t c0 = m31_add(a0, b0), c1 = m31_sub(a0, b0);
+    const uint32_t c2 = m31_add(a2, b2), c3 = m31_sub(a2, b2);
+    const uint32_t e0 = m31_mulc(tw2[p], c2), e1 = m31_mulc(tw2[2 * w - 1 - p], c3);
+    r[i][0] = m31_add(c0, e0);
+    r[i][1] = m31_sub(c0, e0);
+    r[i][2] = m31_add(c1, e1);
+    r[i][3] = m31_sub(c1, e1);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = tc + (i << log_t);
+    const int p = u & (w - 1);
+    uint32_t* x = s + 4 * (u >> lw) * w;
+    x[p] = r[i][0];
+    x[4 * w - 1 - p] = r[i][1];
+    x[2 * w - 1 - p] = r[i][2];
+    x[2 * w + p] = r[i][3];
+  }
+  __syncthreads();
+}
+
+// A whole CircleFFT.interpolate (INTERP: the y-fold, then every x-fold from
+// the widest) or evaluate (every x-layer from the narrowest, then the
+// y-layer) over columns [C, N], N = 2^log_n, in one launch. A block holds G
+// = blockDim.x >> log_t columns in shared memory, 2^log_t threads a column
+// and B butterflies a thread (B 2^log_t = N / 2). The block loads its
+// columns once (16-byte loads where K and `in` allow), runs every layer in
+// shared memory and stores once. The x-layers go two at a time (fft_fold2,
+// fft_spread2: B / 2 four-value units a thread, half the barriers and
+// shared-memory traffic), an odd one alone (fft_layer). Evaluate reads K
+// <= N coefficients a column (in: [C, K]; the rest are zeros), and skips
+// the arithmetic of the x-layers whose upper half is still zero. tw: every
+// layer's twiddles packed, the layer of width w at tw[N - 2w] (the y-layer
+// first); interpolate's inverted and halved.
+template <bool INTERP, int B, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    circle_fft_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, long long C,
+                      int log_n, int K, int log_t, int vec,
+                      const uint32_t* __restrict__ tw) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
+  const int N = 1 << log_n, half = N >> 1;
+  const int G = (int)(blockDim.x >> log_t);
+  const long long c0 = (long long)blockIdx.x * G;
+  const int cols = (int)(C - c0 < G ? C - c0 : G);
+  const int total = G << log_n;
+  if (vec) {                                   // K % 4 == 0, `in` 16-byte aligned
+    for (int e = 4 * threadIdx.x; e < total; e += 4 * blockDim.x) {
+      const int g = e >> log_n, i = e & (N - 1);
+      uint4 v = uint4{0u, 0u, 0u, 0u};
+      if (g < cols && i < K) v = *reinterpret_cast<const uint4*>(in + (c0 + g) * K + i);
+      smem4[e >> 2] = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int g = e >> log_n, i = e & (N - 1);
+      smem[e] = g < cols && i < K ? in[(c0 + g) * K + i] : 0u;
+    }
+  }
+  __syncthreads();
+  uint32_t* s = smem + ((threadIdx.x >> log_t) << log_n);
+  const int tc = threadIdx.x & ((1 << log_t) - 1);
+  const uint32_t* level = tw + N;               // the layer of width 2^lw at level - (2 << lw)
+  if (INTERP) {
+    fft_layer<true, false, B>(s, half, log_n - 1, tc, log_t, tw);
+    int lw = log_n - 2;
+    for (; lw >= 1; lw -= 2)
+      fft_fold2<B / 2>(s, half, lw, tc, log_t, level - (2 << lw), level - (1 << lw));
+    for (; lw >= 0; --lw) fft_layer<true, true, B>(s, half, lw, tc, log_t, level - (2 << lw));
+  } else {
+    int ext = K, lw = 0;                        // values past ext are zero
+    for (; lw <= log_n - 2 && ext <= half; ++lw, ext <<= 1) fft_spread<B>(s, ext, lw, tc, log_t);
+    for (; lw + 1 <= log_n - 2; lw += 2)
+      fft_spread2<B / 2>(s, half, lw, tc, log_t, level - (2 << lw), level - (4 << lw));
+    for (; lw <= log_n - 2; ++lw)
+      fft_layer<false, true, B>(s, half, lw, tc, log_t, level - (2 << lw));
+    fft_layer<false, false, B>(s, half, log_n - 1, tc, log_t, tw);
+  }
+  uint4* o = reinterpret_cast<uint4*>(out + (c0 << log_n));
+  for (int e = threadIdx.x; e < (cols << log_n) >> 2; e += blockDim.x) o[e] = smem4[e];
+}
+
+// K7b's launch shape by N: a column takes T = N/4 threads (at least 1) up
+// to N = 1,024, 256 to 4,096, then N/16 up to 1,024 threads, so B = N / 2T
+// butterflies a thread is 2-16; a block takes 256 / T columns when T < 256.
+template <bool INTERP, int B, int MAXT>
+inline int launch_fft(const uint32_t* in, uint32_t* out, long long C, int log_n, int K,
+                      int log_t, int vec, const uint32_t* tw, cudaStream_t st) {
+  const int T = 1 << log_t;
+  const int G = T < 256 ? 256 / T : 1;
+  const int smem = (G << log_n) * 4;
+  if (smem > 48 * 1024) {   // set at each such launch, so that it holds on whichever card runs it
+    const cudaError_t e = cudaFuncSetAttribute(circle_fft_kernel<INTERP, B, MAXT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kFftMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (C + G - 1) / G;
+  if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  circle_fft_kernel<INTERP, B, MAXT><<<dim3((unsigned)blocks), dim3(G * T), smem, st>>>(
+      in, out, C, log_n, K, log_t, vec, tw);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ K7c
 
 constexpr int kGroups = 5;          // bool, add, addx, xor, eq
@@ -370,6 +624,18 @@ __device__ __forceinline__ void load_points(const uint32_t* __restrict__ p, uint
     v[1] = t.y;
   } else {
     v[0] = *p;
+  }
+}
+
+// V neighbouring values to p (V * 4-byte aligned)
+template <int V>
+__device__ __forceinline__ void store_points(uint32_t* __restrict__ p, const uint32_t* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(p) = uint4{v[0], v[1], v[2], v[3]};
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint2*>(p) = uint2{v[0], v[1]};
+  } else {
+    *p = v[0];
   }
 }
 
@@ -523,171 +789,314 @@ inline int launch_finish(const uint32_t* partial, long long M, long long n_slice
 
 // ------------------------------------------------------------------ K7d
 
-constexpr int kAesGroups = 6;    // packed fields: bool, const, xor, mix, lookup, eq
+constexpr int kAesKinds = 9;        // bool const xor mix lookup table cum cumlk eq
+constexpr int kAesHdr = 32;         // ints of a slice's header (aes_slice_table)
+constexpr int kAesRowsMax = 512;    // rows a slice stages, at most
+constexpr int kAesWeightsMax = 512; // weight rows a slice stages, at most
 
-struct AesAir {
-  const int32_t* idx;            // group g's field f of item i at
-  long long off[kAesGroups];     //   idx[off[g] + f * n[g] + i]; fields:
-  long long n[kAesGroups];       //   bool 1, const 1, xor A B R, mix T0-8 R
-                                 //   K0 K1 K2, lookup U0-7 V0-7 F0-3, eq KS PT CT
-  int32_t mult, tval, sval, tact;  // the table's rows
-  int32_t g[4], cum[4];            // the table fraction's and cum's rows
-  uint32_t z[4], a[4];             // LogUp challenges z, alpha (QM31 components)
+struct AesChallenges {
+  uint32_t z[4], a[4];              // LogUp challenges z, alpha (QM31 components)
 };
-
-struct AesPoint {
-  const uint32_t* __restrict__ vals;
-  long long M, x, sx;            // the point and sigma(x)
-  const AesAir* air;
-  const uint32_t* __restrict__ weights;
-  __device__ __forceinline__ int32_t ref(int g, int f, long long i) const {
-    return air->idx[air->off[g] + f * air->n[g] + i];
-  }
-  __device__ __forceinline__ uint32_t at(int32_t row) const { return vals[row * M + x]; }
-  __device__ __forceinline__ uint32_t sh(int32_t row) const { return vals[row * M + sx]; }
-};
-
-// acc[q] += w[k][q] * c, the term folded below 2^32
-__device__ __forceinline__ void add_term(uint64_t acc[4], const uint32_t* __restrict__ w,
-                                         uint32_t c) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint64_t t = (uint64_t)w[q] * c;
-    acc[q] += (t & kP31) + (t >> 31);
-  }
-}
 
 // QM31 product, components (a + b i) + (c + d i) u with u^2 = 2 + i
 __device__ __forceinline__ void qm31_mul(const uint32_t a[4], const uint32_t b[4],
                                          uint32_t out[4]) {
-  const uint32_t c0 = m31_sub(m31_mul(a[0], b[0]), m31_mul(a[1], b[1]));
-  const uint32_t c1 = m31_add(m31_mul(a[0], b[1]), m31_mul(a[1], b[0]));
-  const uint32_t d0 = m31_sub(m31_mul(a[2], b[2]), m31_mul(a[3], b[3]));
-  const uint32_t d1 = m31_add(m31_mul(a[2], b[3]), m31_mul(a[3], b[2]));
+  const uint32_t c0 = m31_sub(m31_mulc(a[0], b[0]), m31_mulc(a[1], b[1]));
+  const uint32_t c1 = m31_add(m31_mulc(a[0], b[1]), m31_mulc(a[1], b[0]));
+  const uint32_t d0 = m31_sub(m31_mulc(a[2], b[2]), m31_mulc(a[3], b[3]));
+  const uint32_t d1 = m31_add(m31_mulc(a[2], b[3]), m31_mulc(a[3], b[2]));
   const uint32_t e0 = m31_sub(m31_add(d0, d0), d1);          // (2 + i) d
   const uint32_t e1 = m31_add(d0, m31_add(d1, d1));
   out[0] = m31_add(c0, e0);
   out[1] = m31_add(c1, e1);
-  out[2] = m31_add(m31_sub(m31_mul(a[0], b[2]), m31_mul(a[1], b[3])),
-                   m31_sub(m31_mul(a[2], b[0]), m31_mul(a[3], b[1])));
-  out[3] = m31_add(m31_add(m31_mul(a[0], b[3]), m31_mul(a[1], b[2])),
-                   m31_add(m31_mul(a[2], b[1]), m31_mul(a[3], b[0])));
+  out[2] = m31_add(m31_sub(m31_mulc(a[0], b[2]), m31_mulc(a[1], b[3])),
+                   m31_sub(m31_mulc(a[2], b[0]), m31_mulc(a[3], b[1])));
+  out[3] = m31_add(m31_add(m31_mulc(a[0], b[3]), m31_mulc(a[1], b[2])),
+                   m31_add(m31_mulc(a[2], b[1]), m31_mulc(a[3], b[0])));
 }
 
 // z - (u + alpha v), u and v in M31
-__device__ __forceinline__ void logup_den(const AesAir& air, uint32_t u, uint32_t v,
+__device__ __forceinline__ void logup_den(const AesChallenges& ch, uint32_t u, uint32_t v,
                                           uint32_t d[4]) {
-  d[0] = m31_sub(air.z[0], m31_add(u, m31_mul(air.a[0], v)));
+  d[0] = m31_sub(ch.z[0], m31_add(u, m31_mulc(ch.a[0], v)));
 #pragma unroll
-  for (int c = 1; c < 4; ++c) d[c] = m31_sub(air.z[c], m31_mul(air.a[c], v));
+  for (int c = 1; c < 4; ++c) d[c] = m31_sub(ch.z[c], m31_mulc(ch.a[c], v));
 }
 
-// the constraints of item i (of its kind) at one point, added with weights
-// from w (the item's first weight row)
-template <int KIND>
-__device__ __forceinline__ void aes_item(const AesPoint& p, long long i,
-                                         const uint32_t* __restrict__ w, uint64_t acc[4]) {
-  constexpr uint64_t P = kP31;
-  if (KIND == 0) {                        // bool: b (1 - b)
-    const uint64_t b = p.at(p.ref(0, 0, i));
-    add_term(acc, w, m31_red(b * (1 + P - b)));
-  } else if (KIND == 1) {                 // const: v(sigma x) - v(x)
-    const int32_t r = p.ref(1, 0, i);
-    add_term(acc, w, m31_sub(p.sh(r), p.at(r)));
-  } else if (KIND == 2) {                 // xor: R + 2AB - (A + B)
-    const uint64_t a = p.at(p.ref(2, 0, i)), b = p.at(p.ref(2, 1, i));
-    add_term(acc, w, m31_red(p.at(p.ref(2, 2, i)) + 2 * (uint64_t)m31_red(a * b) + 2 * P - a - b));
-  } else if (KIND == 3) {                 // mix: sum T - (R + 2 K0 + 4 K1 + 8 K2)
-    uint64_t s = 0;
+// Where a K7d thread reads: its V points x.. at vx = vals + x, sigma of
+// each at sx[k]; rows are staged offsets (row_offset)
+template <typename Off, int V>
+struct AesPts {
+  const uint32_t* __restrict__ vals;
+  const uint32_t* __restrict__ vx;
+  Off M;
+  uint32_t sx[V];
+  __device__ __forceinline__ void at(uint32_t r, uint32_t* v) const {
+    load_points<V>(vx + row_offset<Off>(r, M), v);
+  }
+  __device__ __forceinline__ void sh(uint32_t r, uint32_t* v) const {
+    const uint32_t* p = vals + row_offset<Off>(r, M);
 #pragma unroll
-    for (int f = 0; f < 9; ++f) s += p.at(p.ref(3, f, i));
-    const uint64_t dec = p.at(p.ref(3, 9, i)) + 2ull * p.at(p.ref(3, 10, i)) +
-                         4ull * p.at(p.ref(3, 11, i)) + 8ull * p.at(p.ref(3, 12, i));
-    add_term(acc, w, m31_red(s + 16 * P - dec));   // dec < 15 p
-  } else if (KIND == 4) {                 // lookup j: f_j (z - (u + alpha v)) - 1
-    uint64_t u = 0, v = 0;
+    for (int k = 0; k < V; ++k) v[k] = p[sx[k]];
+  }
+};
+
+template <int V>
+__device__ __forceinline__ void fold_all(uint64_t acc[4][V]) {
 #pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      u += (uint64_t)p.at(p.ref(4, b, i)) << b;
-      v += (uint64_t)p.at(p.ref(4, 8 + b, i)) << b;
-    }
-    uint32_t den[4], f[4], prod[4];
-    logup_den(*p.air, m31_red(u), m31_red(v), den);
+  for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) f[c] = p.at(p.ref(4, 16 + c, i));
-    qm31_mul(f, den, prod);
-    prod[0] = m31_sub(prod[0], 1);
+    for (int p = 0; p < V; ++p) acc[q][p] = fold(acc[q][p]);
+}
+
+// acc[q][p] += w.q * c[p], one IMAD.WIDE.U32 a component and point
+template <int V>
+__device__ __forceinline__ void add_terms(uint64_t acc[4][V], uint4 w, const uint32_t* c) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) add_term(acc, w + 4 * c, prod[c]);
-  } else if (KIND == 5) {                 // table: g (z - (tval + alpha sval)) - m tact
-    const AesAir& air = *p.air;
-    uint32_t den[4], g[4], prod[4];
-    logup_den(air, p.at(air.tval), p.at(air.sval), den);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) g[c] = p.at(air.g[c]);
-    qm31_mul(g, den, prod);
-    prod[0] = m31_sub(prod[0], m31_mul(p.at(air.mult), p.at(air.tact)));
-#pragma unroll
-    for (int c = 0; c < 4; ++c) add_term(acc, w + 4 * c, prod[c]);
-  } else if (KIND == 6) {                 // cum: cum(sx) - cum(x) - (sum_j f_j - g)(sx)
-    const AesAir& air = *p.air;
-    const long long n_lk = air.n[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint64_t fsum = 0;                  // n_lk terms < 2^31 each
-      for (long long j = 0; j < n_lk; ++j) fsum += p.sh(p.ref(4, 16 + c, j));
-      const uint32_t F = m31_sub(m31_red(fsum), p.sh(air.g[c]));
-      add_term(acc, w + 4 * c, m31_sub(m31_sub(p.sh(air.cum[c]), p.at(air.cum[c])), F));
-    }
-  } else {                                // eq: KS + PT - (2 KS PT + CT)
-    const uint64_t ks = p.at(p.ref(5, 0, i)), pt = p.at(p.ref(5, 1, i));
-    add_term(acc, w, m31_red(ks + pt + 3 * P - 2 * (uint64_t)m31_red(ks * pt) - p.at(p.ref(5, 2, i))));
+  for (int p = 0; p < V; ++p) {
+    acc[0][p] += (uint64_t)w.x * c[p];
+    acc[1][p] += (uint64_t)w.y * c[p];
+    acc[2][p] += (uint64_t)w.z * c[p];
+    acc[3][p] += (uint64_t)w.w * c[p];
   }
 }
 
-// items [start, start + count) of one kind, cut to the slice [i0, i1);
-// `width` constraints (weight rows) an item, the first at row wbase
-template <int KIND>
-__device__ __forceinline__ void aes_items(const AesPoint& p, long long start, long long count,
-                                          long long wbase, int width, long long i0, long long i1,
-                                          uint64_t acc[4]) {
-  const long long lo = i0 > start ? i0 : start;
-  const long long hi = i1 < start + count ? i1 : start + count;
-  for (long long i = lo; i < hi; ++i)
-    aes_item<KIND>(p, i - start, p.weights + 4 * (wbase + width * (i - start)), acc);
+__host__ __device__ constexpr int aes_fields(int kind) {
+  return kind == 0 || kind == 1 ? 1 : kind == 2 || kind == 8 ? 3 : kind == 3 ? 13 : 0;
 }
 
-// grid (point tiles, slices); slice s holds items [bounds[s], bounds[s + 1]);
-// partial[(slice * 4 + q) * M + x], summed by composition_finish_kernel
-__global__ void __launch_bounds__(kStarkThreads)
-    aes_composition_kernel(const uint32_t* __restrict__ vals, long long M,
-                           const int32_t* __restrict__ perm, AesAir air,
-                           const long long* __restrict__ bounds,
-                           const uint32_t* __restrict__ weights, uint32_t* __restrict__ partial) {
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= M) return;
-  const AesPoint p{vals, M, x, (long long)perm[x], &air, weights};
-  const long long i0 = bounds[blockIdx.y], i1 = bounds[blockIdx.y + 1];
-  uint64_t acc[4] = {0, 0, 0, 0};
-  const long long* n = air.n;
-  long long s = 0, w = 0;                 // first item and weight row of a kind
-  aes_items<0>(p, s, n[0], w, 1, i0, i1, acc);
-  s += n[0], w += n[0];
-  aes_items<1>(p, s, n[1], w, 1, i0, i1, acc);
-  s += n[1], w += n[1];
-  aes_items<2>(p, s, n[2], w, 1, i0, i1, acc);
-  s += n[2], w += n[2];
-  aes_items<3>(p, s, n[3], w, 1, i0, i1, acc);
-  s += n[3], w += n[3];
-  aes_items<4>(p, s, n[4], w, 4, i0, i1, acc);
-  s += n[4], w += 4 * n[4];
-  aes_items<5>(p, s, 1, w, 4, i0, i1, acc);
-  s += 1, w += 4;
-  aes_items<6>(p, s, 1, w, 4, i0, i1, acc);
-  s += 1, w += 4;
-  aes_items<7>(p, s, n[5], w, 1, i0, i1, acc);
+// c(x) of a one-constraint item from its gathered values f (s: the row at
+// sigma x, for const)
+template <int KIND>
+__device__ __forceinline__ uint32_t aes_constraint(const uint32_t* f, uint32_t s) {
+  constexpr uint64_t P = kP31;
+  if (KIND == 0) return m31_mulc(f[0], kP31 + 1 - f[0]);  // bool: b (1 - b)
+  if (KIND == 1) return m31_sub(s, f[0]); // const: v(sigma x) - v(x)
+  if (KIND == 2) {                        // xor: R + 2AB - (A + B)
+    const uint64_t a = f[0], b = f[1];
+    return m31_red(f[2] + 2 * (uint64_t)m31_mulc(f[0], f[1]) + 2 * P - a - b);
+  }
+  if (KIND == 3) {                        // mix: sum T - (R + 2 K0 + 4 K1 + 8 K2)
+    uint64_t t = 16 * P;                  // dec < 15 p
 #pragma unroll
-  for (int q = 0; q < 4; ++q) partial[((long long)blockIdx.y * 4 + q) * M + x] = m31_red(acc[q]);
+    for (int k = 0; k < 9; ++k) t += f[k];
+    return m31_red(t - f[9] - 2ull * f[10] - 4ull * f[11] - 8ull * f[12]);
+  }
+  const uint64_t ks = f[0], pt = f[1];    // eq: KS + PT - (2 KS PT + CT)
+  return m31_red(ks + pt + 3 * P - 2 * (uint64_t)m31_mulc(f[0], f[1]) - f[2]);
+}
+
+// U one-constraint items j.. of a kind: every gather in flight, then the
+// terms, then one fold (U <= 4 terms)
+template <int KIND, int U, typename Off, int V>
+__device__ __forceinline__ void simple_step(const AesPts<Off, V>& pt, const uint32_t* rows,
+                                            int cnt, const uint4* w, int j,
+                                            uint64_t acc[4][V]) {
+  constexpr int F = aes_fields(KIND);
+  uint32_t v[U][F][V], s[U][V];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) pt.at(rows[f * cnt + j + u], v[u][f]);
+    if (KIND == 1) pt.sh(rows[j + u], s[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    uint32_t c[V];
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      uint32_t fv[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) fv[f] = v[u][f][p];
+      c[p] = aes_constraint<KIND>(fv, KIND == 1 ? s[u][p] : 0u);
+    }
+    add_terms<V>(acc, w[j + u], c);
+  }
+  fold_all<V>(acc);
+}
+
+template <int KIND, int U, typename Off, int V>
+__device__ __forceinline__ void simple_items(const AesPts<Off, V>& pt, const uint32_t* rows,
+                                             int cnt, const uint4* w, uint64_t acc[4][V]) {
+  int j = 0;
+  for (; j + U <= cnt; j += U) simple_step<KIND, U, Off, V>(pt, rows, cnt, w, j, acc);
+  for (; j < cnt; ++j) simple_step<KIND, 1, Off, V>(pt, rows, cnt, w, j, acc);
+}
+
+// lookup j: f_j (z - (u + alpha v)) - 1, four constraints with weight rows
+// 4j + c; fields U0-7, V0-7, F0-3
+template <typename Off, int V>
+__device__ __forceinline__ void lookup_items(const AesPts<Off, V>& pt, const AesChallenges& ch,
+                                             const uint32_t* rows, int cnt, const uint4* w,
+                                             uint64_t acc[4][V]) {
+  for (int j = 0; j < cnt; ++j) {
+    uint32_t v[20][V];
+#pragma unroll
+    for (int f = 0; f < 20; ++f) pt.at(rows[f * cnt + j], v[f]);
+    uint32_t prod[4][V];
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      uint64_t u = 0, vv = 0;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        u += (uint64_t)v[b][p] << b;
+        vv += (uint64_t)v[8 + b][p] << b;
+      }
+      uint32_t den[4], f[4], r[4];
+      logup_den(ch, m31_red(u), m31_red(vv), den);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) f[c] = v[16 + c][p];
+      qm31_mul(f, den, r);
+      r[0] = m31_sub(r[0], 1);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) prod[c][p] = r[c];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) add_terms<V>(acc, w[4 * j + c], prod[c]);
+    fold_all<V>(acc);
+  }
+}
+
+// the table: g (z - (tval + alpha sval)) - m tact; fields TVAL, SVAL, G0-3,
+// MULT, TACT
+template <typename Off, int V>
+__device__ __forceinline__ void table_item(const AesPts<Off, V>& pt, const AesChallenges& ch,
+                                           const uint32_t* rows, const uint4* w,
+                                           uint64_t acc[4][V]) {
+  uint32_t v[8][V], prod[4][V];
+#pragma unroll
+  for (int f = 0; f < 8; ++f) pt.at(rows[f], v[f]);
+#pragma unroll
+  for (int p = 0; p < V; ++p) {
+    uint32_t den[4], g[4], r[4];
+    logup_den(ch, v[0][p], v[1][p], den);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) g[c] = v[2 + c][p];
+    qm31_mul(g, den, r);
+    r[0] = m31_sub(r[0], m31_mulc(v[6][p], v[7][p]));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) prod[c][p] = r[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) add_terms<V>(acc, w[c], prod[c]);
+  fold_all<V>(acc);
+}
+
+// the cum column's constraint cum(sx) - cum(x) - (sum_j f_j - g)(sx), split
+// (it is linear): the cum item adds cum(sx) - cum(x) + g(sx) (fields cum0-3,
+// G0-3), each cumlk item j adds -f_j(sx) (fields F0-3 of lookup j), all
+// with the cum column's four weight rows. A slice sums its cumlk items'
+// values first (< 2^31 each, at most kAesRowsMax / 4 of them), then adds
+// four terms.
+template <typename Off, int V>
+__device__ __forceinline__ void cum_item(const AesPts<Off, V>& pt, const uint32_t* rows,
+                                         const uint4* w, uint64_t acc[4][V]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t cs[V], cx[V], gs[V], t[V];
+    pt.sh(rows[c], cs);
+    pt.at(rows[c], cx);
+    pt.sh(rows[4 + c], gs);
+#pragma unroll
+    for (int p = 0; p < V; ++p) t[p] = m31_add(m31_sub(cs[p], cx[p]), gs[p]);
+    add_terms<V>(acc, w[c], t);
+  }
+  fold_all<V>(acc);
+}
+
+template <typename Off, int V>
+__device__ __forceinline__ void cumlk_items(const AesPts<Off, V>& pt, const uint32_t* rows,
+                                            int cnt, const uint4* w, uint64_t acc[4][V]) {
+  if (cnt == 0) return;
+  uint64_t sum[4][V] = {};
+  int j = 0;
+  for (; j + 4 <= cnt; j += 4) {          // sixteen gathers a point in flight
+    uint32_t v[4][4][V];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pt.sh(rows[c * cnt + j + u], v[u][c]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int p = 0; p < V; ++p) sum[c][p] += v[u][c][p];
+  }
+  for (; j < cnt; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t v[V];
+      pt.sh(rows[c * cnt + j], v);
+#pragma unroll
+      for (int p = 0; p < V; ++p) sum[c][p] += v[p];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t t[V];
+#pragma unroll
+    for (int p = 0; p < V; ++p) t[p] = m31_sub(0u, m31_red(sum[c][p]));
+    add_terms<V>(acc, w[c], t);
+  }
+  fold_all<V>(acc);
+}
+
+// grid (slices, point tiles) when slices_first, else (point tiles, slices).
+// Slice s's header hdr[s * kAesHdr ..]: its rows at srows[h0, h0 + h1),
+// its weight rows [h2, h2 + h3); then for kind k (kAesKinds, alpha-power
+// order) its item count, the offset of its rows (field f of item j at
+// rows[off + f * count + j]) and of its weight rows in the slice's. The
+// block stages the rows (times M when Off is 32-bit) and the weight rows in
+// shared memory. A thread takes V neighbouring points x.. (16- or 8-byte
+// gathers at x; one value a point at sigma x); partial[(slice * 4 + q) * M
+// + x], summed by composition_finish_kernel. (The launch bounds name one
+// block an SM: without a minimum, ptxas held the 64-bit-offset two-point
+// instance to 64 registers and spilled; the four-point instance the AES
+// shapes run keeps three blocks an SM either way.)
+template <typename Off, int V>
+__global__ void __launch_bounds__(kStarkThreads, 1)
+    aes_composition_kernel(const uint32_t* __restrict__ vals, long long M,
+                           const int32_t* __restrict__ perm, const __grid_constant__ AesChallenges ch,
+                           const int32_t* __restrict__ hdr, const int32_t* __restrict__ srows,
+                           const uint32_t* __restrict__ weights, int slices_first,
+                           uint32_t* __restrict__ partial) {
+  __shared__ int h[kAesHdr];
+  __shared__ uint32_t rows[kAesRowsMax];
+  __shared__ uint4 w[kAesWeightsMax];
+  const unsigned slice = slices_first ? blockIdx.x : blockIdx.y;
+  const unsigned tile = slices_first ? blockIdx.y : blockIdx.x;
+  if (threadIdx.x < kAesHdr) h[threadIdx.x] = hdr[(long long)slice * kAesHdr + threadIdx.x];
+  __syncthreads();
+  for (int j = threadIdx.x; j < h[1]; j += blockDim.x) {
+    const uint32_t r = (uint32_t)srows[h[0] + j];
+    rows[j] = sizeof(Off) == 4 ? r * (uint32_t)M : r;
+  }
+  for (int j = threadIdx.x; j < h[3]; j += blockDim.x)
+    w[j] = reinterpret_cast<const uint4*>(weights)[h[2] + j];
+  __syncthreads();
+  const long long x = ((long long)tile * blockDim.x + threadIdx.x) * V;
+  if (x >= M) return;
+  AesPts<Off, V> pt{vals, vals + x, (Off)M, {}};
+#pragma unroll
+  for (int k = 0; k < V; ++k) pt.sx[k] = (uint32_t)perm[x + k];
+  uint64_t acc[4][V] = {};
+  simple_items<0, 4, Off, V>(pt, rows + h[5], h[4], w + h[6], acc);
+  simple_items<1, 4, Off, V>(pt, rows + h[8], h[7], w + h[9], acc);
+  simple_items<2, 4, Off, V>(pt, rows + h[11], h[10], w + h[12], acc);
+  simple_items<3, 2, Off, V>(pt, rows + h[14], h[13], w + h[15], acc);
+  lookup_items<Off, V>(pt, ch, rows + h[17], h[16], w + h[18], acc);
+  if (h[19]) table_item<Off, V>(pt, ch, rows + h[20], w + h[21], acc);
+  if (h[22]) cum_item<Off, V>(pt, rows + h[23], w + h[24], acc);
+  cumlk_items<Off, V>(pt, rows + h[26], h[25], w + h[27], acc);
+  simple_items<8, 4, Off, V>(pt, rows + h[29], h[28], w + h[30], acc);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t o[V];
+#pragma unroll
+    for (int p = 0; p < V; ++p) o[p] = m31_red(acc[q][p]);
+    store_points<V>(partial + ((long long)slice * 4 + q) * M + x, o);
+  }
 }
 
 }  // namespace zksc
@@ -751,6 +1160,36 @@ int zksc_circle_layer(const void* in, void* out, long long C, int log_n, int int
   return (int)cudaGetLastError();
 }
 
+// K7b, one launch a transform. in: [C, K] (interpolate: K = N), out: [C,
+// N], N = 2^log_n with 2 <= log_n <= 15; tw: [N] packed twiddles (see
+// circle_fft_kernel).
+int zksc_circle_fft(const void* in, void* out, long long C, int log_n, int K, int interp,
+                    const void* tw, void* stream) {
+  if (C <= 0) return (int)cudaSuccess;
+  if (log_n < 2 || log_n > zksc::kFftMaxLog || K < 0 || K > (1 << log_n) ||
+      (interp && K != (1 << log_n)))
+    return (int)cudaErrorInvalidValue;
+  const int N = 1 << log_n;
+  const int T = N <= 1024 ? N / 4 : N <= 4096 ? 256 : N / 16 < 1024 ? N / 16 : 1024;
+  int log_t = 0;
+  while ((1 << log_t) < T) ++log_t;
+  const int B = N / 2 / T;
+  const int vec = K % 4 == 0 && ((uintptr_t)in & 15) == 0;
+  const uint32_t* i = (const uint32_t*)in;
+  uint32_t* o = (uint32_t*)out;
+  const uint32_t* t = (const uint32_t*)tw;
+  cudaStream_t st = (cudaStream_t)stream;
+#define ZK_FFT(BB, TT, MAXT)                                                                 \
+  if (B == BB && (TT == 0 || T == TT))                                                      \
+    return interp                                                                           \
+        ? zksc::launch_fft<true, BB, MAXT>(i, o, C, log_n, K, log_t, vec, t, st)            \
+        : zksc::launch_fft<false, BB, MAXT>(i, o, C, log_n, K, log_t, vec, t, st);
+  ZK_FFT(2, 0, 256) ZK_FFT(4, 0, 256) ZK_FFT(8, 256, 256) ZK_FFT(8, 512, 512)
+  ZK_FFT(8, 1024, 1024) ZK_FFT(16, 0, 1024)
+#undef ZK_FFT
+  return (int)cudaErrorInvalidValue;
+}
+
 // K7c. vals: [R, M]; idx: the packed index groups (off, n: 5 entries each,
 // bool/add/addx/xor/eq); weights: [sum n, 4]; slice: constraints a slice (<=
 // 128); points: points a thread (1 or 2; M a multiple); threads: a block's
@@ -802,42 +1241,56 @@ int zksc_composition(const void* vals, long long M, const void* idx, const long 
   return zksc::launch_finish(p, M, n_slices, (const uint32_t*)vn_inv, (uint32_t*)out, st);
 }
 
-// K7d. vals: [R, M]; perm: sigma as an index map [M]; idx: the packed fields
-// (off, n: 6 entries each, bool/const/xor/mix/lookup/eq); rows: mult, tval,
-// sval, tact, g[4], cum[4]; za: z[4], alpha[4]; bounds: [n_slices + 1] item
-// bounds on the device; weights: [K, 4]; partial: [n_slices, 4, M] scratch;
-// out: [4, M].
-int zksc_aes_composition(const void* vals, long long M, const void* perm, const void* idx,
-                         const long long* off, const long long* n, const int* rows,
-                         const unsigned* za, const void* bounds, long long n_slices,
-                         const void* weights, void* partial, const void* vn_inv, void* out,
+// K7d. vals: [R, M]; perm: sigma as an index map [M]; za: z[4], alpha[4];
+// hdr: [n_slices, kAesHdr] slice headers and srows their rows
+// (ops/stark_kernels.aes_slice_table, on the device); weights: [K, 4];
+// points: points a thread (1, 2 or 4; M a multiple); threads: a block's
+// threads (32 or 128); wide: 64-bit gather offsets (R * M >= 2^31);
+// slices_first: consecutive blocks take the slices of one point tile;
+// partial: [n_slices, 4, M] scratch; out: [4, M].
+int zksc_aes_composition(const void* vals, long long M, const void* perm, const unsigned* za,
+                         const void* hdr, const void* srows, long long n_slices,
+                         const void* weights, int points, int threads, int wide,
+                         int slices_first, void* partial, const void* vn_inv, void* out,
                          void* stream) {
   if (M <= 0) return (int)cudaSuccess;
   if (n_slices <= 0 || n_slices > 65535) return (int)cudaErrorInvalidValue;
-  zksc::AesAir air;
-  air.idx = (const int32_t*)idx;
-  for (int g = 0; g < zksc::kAesGroups; ++g) {
-    air.off[g] = off[g];
-    air.n[g] = n[g];
-  }
-  air.mult = rows[0], air.tval = rows[1], air.sval = rows[2], air.tact = rows[3];
+  if ((points != 1 && points != 2 && points != 4) || M % points) return (int)cudaErrorInvalidValue;
+  if (threads != 32 && threads != zksc::kStarkThreads) return (int)cudaErrorInvalidValue;
+  zksc::AesChallenges ch;
   for (int c = 0; c < 4; ++c) {
-    air.g[c] = rows[4 + c];
-    air.cum[c] = rows[8 + c];
-    air.z[c] = za[c];
-    air.a[c] = za[4 + c];
+    ch.z[c] = za[c];
+    ch.a[c] = za[4 + c];
   }
+  const long long tile = (long long)threads * points;
+  const long long tiles = (M + tile - 1) / tile;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid = slices_first ? dim3((unsigned)n_slices, (unsigned)tiles)
+                                 : dim3((unsigned)tiles, (unsigned)n_slices);
+  const dim3 block(threads);
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((M + zksc::kStarkThreads - 1) / zksc::kStarkThreads),
-                  (unsigned)n_slices);
-  const dim3 block(zksc::kStarkThreads);
-  zksc::aes_composition_kernel<<<grid, block, 0, st>>>(
-      (const uint32_t*)vals, M, (const int32_t*)perm, air, (const long long*)bounds,
-      (const uint32_t*)weights, (uint32_t*)partial);
+  const uint32_t* v = (const uint32_t*)vals;
+  const int32_t* pm = (const int32_t*)perm;
+  const int32_t* h = (const int32_t*)hdr;
+  const int32_t* r = (const int32_t*)srows;
+  const uint32_t* w = (const uint32_t*)weights;
+  uint32_t* p = (uint32_t*)partial;
+  const int sf = slices_first;
+#define ZK_AES(OFF, V)                                                                      \
+  zksc::aes_composition_kernel<OFF, V><<<grid, block, 0, st>>>(v, M, pm, ch, h, r, w, sf, p);
+  if (wide) {
+    if (points == 4) ZK_AES(unsigned long long, 4)
+    else if (points == 2) ZK_AES(unsigned long long, 2)
+    else ZK_AES(unsigned long long, 1)
+  } else {
+    if (points == 4) ZK_AES(uint32_t, 4)
+    else if (points == 2) ZK_AES(uint32_t, 2)
+    else ZK_AES(uint32_t, 1)
+  }
+#undef ZK_AES
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return zksc::launch_finish((const uint32_t*)partial, M, n_slices, (const uint32_t*)vn_inv,
-                             (uint32_t*)out, st);
+  return zksc::launch_finish(p, M, n_slices, (const uint32_t*)vn_inv, (uint32_t*)out, st);
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@ and waits for all of them; ``load(name)`` builds on first use.
     ec   csrc/ec_kernels.cu  -> build/libzksc_ec.so   (K1 chunk_scan, K2 jac_add_n)
     msm  csrc/msm_kernels.cu -> build/libzksc_msm.so  (K3 ladder)
     stark csrc/stark_kernels.cu -> build/libzksc_stark.so (K7a blake2s,
-         K7b circle_layer, K7c composition, K7d aes_composition)
+         K7b circle_fft and circle_layer, K7c composition, K7d
+         aes_composition)
 """
 from __future__ import annotations
 

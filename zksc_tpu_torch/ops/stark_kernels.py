@@ -4,8 +4,10 @@
     replaces the work of zksc_tpu/stark/blake2s.py:blake2s / blake2s_pair.
     blake2s_tree (K7a's tree launch): a whole Merkle tree over strided
     leaves, every layer, in one launch (zksc_tpu/stark/merkle.py:commit).
-  - circle_layer (K7b): one fold layer of the circle FFT over a batch of
-    columns; replaces zksc_tpu/stark/circle.py:CircleFFT.interpolate /
+  - circle_fft (K7b): a whole circle FFT (interpolate or evaluate) over a
+    batch of columns in one launch, each column held in shared memory, for
+    N <= 2^FFT_MAX_LOG; circle_layer (K7b above that): one fold layer a
+    launch. Both replace zksc_tpu/stark/circle.py:CircleFFT.interpolate /
     evaluate, which XLA fuses.
   - composition (K7c): the constraint composition divided by V_N; replaces
     zksc_tpu/stark/prover.py:_composition.
@@ -34,15 +36,24 @@ from . import cuda_build
 LAUNCHES = {"blake2s": 0, "circle_layer": 0, "composition": 0,
             "aes_composition": 0}
 
+# K7b: transforms of up to 2^FFT_MAX_LOG values are one circle_fft launch
+# (the column in shared memory; the kernel's kFftMaxLog); longer ones run
+# circle_layer, one launch a layer
+FFT_MAX_LOG = 15
 # constraints per K7c slice (at most the kernel's kSliceMax, 128), and the
 # smaller slice for a single 32-thread point tile
 COMPOSITION_SLICE = 64
 COMPOSITION_SLICE_SMALL = 32
 # K7c gathers with 64-bit offsets from R * M values on
 WIDE_OFFSETS_FROM = 1 << 31
-# values gathered per K7d slice (aes_slices): ~120 slices x 16 point tiles
-# for the AES-128 AIR (~30.5k values a point) at M = 2,048
+# values gathered per K7d slice (aes_slices): ~120 slices for the AES-128
+# AIR (~30.5k values a point)
 AES_SLICE_GATHERS = 256
+# K7d's grid order: from this many point tiles on, consecutive blocks take
+# the slices of one point tile, so the rows a tile's slices share stay in
+# L2; below it, the point tiles of one slice (the faster order on one
+# H100 at M = 4,096-8,192 and at 2,048 respectively)
+AES_SLICES_FIRST_TILES = 8
 
 
 def reset_launch_counts():
@@ -59,13 +70,15 @@ def _declare(lib):
     lib.zksc_blake2s_tree.argtypes = [vp, cll, cll, cll, cll, vp, vp, vp]
     lib.zksc_circle_layer.restype = ci
     lib.zksc_circle_layer.argtypes = [vp, vp, cll, ci, ci, ci, ci, vp, vp]
+    lib.zksc_circle_fft.restype = ci
+    lib.zksc_circle_fft.argtypes = [vp, vp, cll, ci, ci, ci, vp, vp]
     lib.zksc_composition.restype = ci
     lib.zksc_composition.argtypes = [vp, cll, vp, lls, lls, vp, cll, ci, ci,
                                      ci, vp, vp, vp, vp]
     lib.zksc_aes_composition.restype = ci
     lib.zksc_aes_composition.argtypes = [
-        vp, cll, vp, vp, lls, lls, ctypes.POINTER(ci),
-        ctypes.POINTER(ctypes.c_uint), vp, cll, vp, vp, vp, vp, vp]
+        vp, cll, vp, ctypes.POINTER(ctypes.c_uint), vp, vp, cll, vp, ci, ci,
+        ci, ci, vp, vp, vp, vp]
 
 
 def _lib():
@@ -198,6 +211,36 @@ def circle_layer(src: torch.Tensor, interp: bool, rev: bool, log_w: int,
     return out
 
 
+def circle_fft(src: torch.Tensor, interp: bool, log_n: int,
+               tw: torch.Tensor) -> torch.Tensor:
+    """K7b's one-launch transform (csrc/stark_kernels.cu circle_fft_kernel):
+    a whole CircleFFT.interpolate (interp; src [C, N]) or evaluate (src
+    [C, K], K <= N coefficients a column, the rest taken as zeros) of N =
+    2^log_n, 2 <= log_n <= FFT_MAX_LOG, each column held in shared memory.
+    tw: the packed twiddles [N] (CircleFFT.twiddles' "fft_interp" /
+    "fft_eval"). Returns a new [C, N].
+    Counted under K7b's key, circle_layer."""
+    _check(src, "circle_fft input")
+    if src.dim() != 2:
+        raise ValueError(f"circle_fft: expected [C, K], got {tuple(src.shape)}")
+    C, K = src.shape
+    N = 1 << log_n
+    if not 2 <= log_n <= FFT_MAX_LOG or K > N or (interp and K != N):
+        raise ValueError(f"circle_fft: log_n={log_n}, K={K}, interp={interp}")
+    _check(tw, "circle_fft twiddles", shape=(N,))
+    if tw.device != src.device:
+        raise ValueError("circle_fft: twiddles on another device")
+    out = torch.empty((C, N), dtype=torch.int32, device=src.device)
+    if C == 0:
+        return out
+    rc = _lib().zksc_circle_fft(src.data_ptr(), out.data_ptr(), C, log_n, K,
+                                int(interp), tw.data_ptr(),
+                                _stream(src))
+    _raise_on(rc, "circle_fft")
+    LAUNCHES["circle_layer"] += 1
+    return out
+
+
 # ---------------------------------------------------------------- K7c
 
 GROUP_FIELDS = (("bool", (None,)),
@@ -324,28 +367,40 @@ def aes_n_constraints(n: tuple) -> int:
     return n[0] + n[1] + n[2] + n[3] + 4 * n[4] + 8 + n[5]
 
 
-# K7d's item kinds, in the order of its items and of the alpha powers
-AES_KINDS = ("bool", "const", "xor", "mix", "lookup", "table", "cum", "eq")
+# K7d's item kinds, in the order of its items and of the alpha powers. The
+# cum column's constraint is linear in its parts, so it is cut into the cum
+# item (cum at x and sigma x, G at sigma x) and one cumlk item a lookup
+# instance (its four F columns at sigma x, subtracted): aes_slices spreads
+# the 4 n_lk gathers of its sum over slices like any other item's.
+AES_KINDS = ("bool", "const", "xor", "mix", "lookup", "table", "cum", "cumlk",
+             "eq")
+# ints of a K7d slice header (the kernel's kAesHdr), and the rows and weight
+# rows a slice may stage (kAesRowsMax, kAesWeightsMax)
+AES_HDR = 32
+AES_ROWS_MAX = 512
+AES_WEIGHTS_MAX = 512
 
 
 def aes_item_counts(n: tuple) -> dict:
-    """Items of each kind from pack_aes_groups' n (one table, one cum)."""
-    return dict(zip(AES_KINDS, (n[0], n[1], n[2], n[3], n[4], 1, 1, n[5])))
+    """Items of each kind from pack_aes_groups' n (one table, one cum, a
+    cumlk a lookup instance)."""
+    return dict(zip(AES_KINDS, (n[0], n[1], n[2], n[3], n[4], 1, 1, n[4], n[5])))
 
 
-def aes_item_gathers(n_lookups: int) -> dict:
-    """Values K7d gathers from vals for one item of each kind: the table
-    reads TVAL, SVAL, G (4), M and TACT; the cum item reads each lookup's
-    four F columns and G at sigma(x), and cum at x and sigma(x)."""
+def aes_item_gathers() -> dict:
+    """Values K7d gathers from vals for one item of each kind: const reads
+    its row at x and sigma(x); the table reads TVAL, SVAL, G (4), M and
+    TACT; cum reads cum at x and sigma(x) and G at sigma(x); cumlk a
+    lookup's four F columns at sigma(x)."""
     return {"bool": 1, "const": 2, "xor": 3, "mix": 13, "lookup": 20,
-            "table": 8, "cum": 4 * n_lookups + 12, "eq": 3}
+            "table": 8, "cum": 12, "cumlk": 4, "eq": 3}
 
 
 def aes_slices(n: tuple) -> np.ndarray:
     """K7d's slice bounds over its items (AES_KINDS order) as int64
     [n_slices + 1]: consecutive items, a new slice where the values gathered
     would pass AES_SLICE_GATHERS."""
-    counts, gathers = aes_item_counts(n), aes_item_gathers(n[4])
+    counts, gathers = aes_item_counts(n), aes_item_gathers()
     costs = np.concatenate([np.full(counts[k], gathers[k]) for k in AES_KINDS])
     bounds, acc = [0], 0
     for i, c in enumerate(costs):
@@ -357,50 +412,123 @@ def aes_slices(n: tuple) -> np.ndarray:
     return np.asarray(bounds, dtype=np.int64)
 
 
-def aes_composition(vals: torch.Tensor, perm: torch.Tensor, idx: torch.Tensor,
-                    off: tuple, n: tuple, rows: tuple, bounds: torch.Tensor,
-                    za: tuple, weights: torch.Tensor,
-                    vn_inv: torch.Tensor) -> torch.Tensor:
+def _aes_kind_rows(idx: np.ndarray, off: tuple, n: tuple, rows: tuple) -> list:
+    """Each kind's item fields as [fields, items] int32 arrays (AES_KINDS
+    order): the kernel's field order (table: TVAL, SVAL, G0-3, M, TACT;
+    cum: cum0-3, G0-3; cumlk: the lookups' F0-3)."""
+    def group(g, fields):
+        return idx[off[g]:off[g] + fields * n[g]].reshape(fields, n[g])
+    lookup = group(4, 20)
+    table = np.asarray([rows[1], rows[2], *rows[4:8], rows[0], rows[3]],
+                       dtype=np.int32)[:, None]
+    cum = np.asarray([*rows[8:12], *rows[4:8]], dtype=np.int32)[:, None]
+    return [group(0, 1), group(1, 1), group(2, 3), group(3, 13), lookup, table,
+            cum, lookup[16:20], group(5, 3)]
+
+
+def aes_slice_table(idx: np.ndarray, off: tuple, n: tuple, rows: tuple,
+                    bounds: np.ndarray) -> tuple:
+    """K7d's staging table from pack_aes_groups' output and the slice
+    bounds: (hdr int32 [n_slices, AES_HDR], srows int32). Slice s stages
+    srows[h0, h0 + h1) and weight rows [h2, h2 + h3); kind k's items in it
+    are h[4 + 3k] with their rows at h[5 + 3k] in the slice's rows (field
+    f of item j at + f * count + j) and first weight row at h[6 + 3k] in
+    the slice's weight rows. Lookup j's weight rows are 4j + c; cum and
+    every cumlk share the cum column's four."""
+    kinds = _aes_kind_rows(idx, off, n, rows)
+    counts = aes_item_counts(n)
+    start = np.cumsum([0] + [counts[k] for k in AES_KINDS])
+    # first weight row of each kind, and weight rows an item (every cumlk
+    # item takes the cum column's four)
+    per = {"lookup": 4, "table": 4, "cum": 4, "cumlk": 0}
+    wstart, w = {}, 0
+    for k in AES_KINDS:
+        wstart[k] = wstart["cum"] if k == "cumlk" else w
+        w += counts[k] * per.get(k, 1)
+    hdr = np.zeros((len(bounds) - 1, AES_HDR), dtype=np.int32)
+    parts, at = [], 0
+    for s, (i0, i1) in enumerate(zip(bounds[:-1], bounds[1:])):
+        h, mine, wlo, whi = hdr[s], [], None, None
+        for k, (kind, fields) in enumerate(zip(AES_KINDS, kinds)):
+            a, b = max(i0, start[k]) - start[k], min(i1, start[k + 1]) - start[k]
+            cnt = max(0, b - a)
+            h[4 + 3 * k] = cnt
+            if not cnt:
+                continue
+            h[5 + 3 * k] = sum(len(m) for m in mine)
+            mine.append(fields[:, a:a + cnt].reshape(-1))
+            lo = wstart[kind] + a * per.get(kind, 1)
+            hi = lo + (4 if kind == "cumlk" else cnt * per.get(kind, 1))
+            wlo = lo if wlo is None else min(wlo, lo)
+            whi = hi if whi is None else max(whi, hi)
+            h[6 + 3 * k] = lo
+        nrows = sum(len(m) for m in mine)
+        if nrows > AES_ROWS_MAX or whi - wlo > AES_WEIGHTS_MAX:
+            raise ValueError(f"aes_slice_table: slice {s} stages {nrows} rows, "
+                             f"{whi - wlo} weight rows")
+        for k in range(len(AES_KINDS)):
+            if h[4 + 3 * k]:
+                h[6 + 3 * k] -= wlo
+        h[:4] = (at, nrows, wlo, whi - wlo)
+        parts += mine
+        at += nrows
+    return hdr, np.concatenate(parts).astype(np.int32)
+
+
+def aes_composition_plan(M: int) -> tuple:
+    """K7d's launch shape at M points: (points a thread, threads a block)
+    as composition_plan's, and whether consecutive blocks take the slices
+    of one point tile (slices_first: from AES_SLICES_FIRST_TILES tiles) or
+    the point tiles of one slice."""
+    _, points, threads = composition_plan(M)
+    tiles = -(-M // (points * threads))
+    return points, threads, tiles >= AES_SLICES_FIRST_TILES
+
+
+def aes_composition(vals: torch.Tensor, perm: torch.Tensor, table: tuple,
+                    za: tuple, weights: torch.Tensor, vn_inv: torch.Tensor) -> torch.Tensor:
     """K7d: Q = (sum_k w_k c_k) / V_N as int32 [4, M] for the AES AIR from
-    vals [R, M], sigma as the index map perm [M], the packed index groups
-    (pack_aes_groups: idx on the device, off, n, rows), the slice bounds
-    (aes_slices, int64 on the device), za = z (4) + alpha (4) of the LogUp
-    draw, weights [K, 4] and vn_inv [M]. Two launches: the sliced sums,
-    then K7c's total."""
+    vals [R, M], sigma as the index map perm [M], table = (hdr, srows, n,
+    max_row): aes_slice_table's arrays on the device, pack_aes_groups' n
+    and the largest row they name; za = z (4) + alpha (4) of the LogUp
+    draw, weights [K, 4] and vn_inv [M], in the launch shape
+    aes_composition_plan(M). Two launches: the sliced sums, then K7c's
+    total."""
     _check(vals, "aes_composition vals")
     if vals.dim() != 2:
         raise ValueError(f"aes_composition: expected vals [R, M], got {tuple(vals.shape)}")
     R, M = vals.shape
-    if len(off) != 6 or len(n) != 6 or len(rows) != 12 or len(za) != 8:
-        raise ValueError("aes_composition: expected six index groups, 12 "
-                         "rows and 8 challenge components")
+    hdr, srows, n, max_row = table
+    if len(n) != 6 or len(za) != 8:
+        raise ValueError("aes_composition: expected six index groups and 8 "
+                         "challenge components")
+    n_slices = hdr.shape[0]
     _check(perm, "aes_composition perm", shape=(M,))
-    _check(idx, "aes_composition idx", shape=(off[-1] + 3 * n[-1],))
+    _check(hdr, "aes_composition hdr", shape=(n_slices, AES_HDR))
+    _check(srows, "aes_composition rows")
     _check(weights, "aes_composition weights", shape=(aes_n_constraints(n), 4))
     _check(vn_inv, "aes_composition vn_inv", shape=(M,))
-    _require_cuda(bounds, "aes_composition bounds")
-    if bounds.dtype != torch.int64 or bounds.dim() != 1 or not bounds.is_contiguous():
-        raise ValueError("aes_composition: bounds must be contiguous int64 [n_slices + 1]")
-    for t in (perm, idx, bounds, weights, vn_inv):
+    for t in (perm, hdr, srows, weights, vn_inv):
         if t.device != vals.device:
             raise ValueError("aes_composition: operands on different devices")
-    if not all(0 <= r < R for r in rows):
-        raise ValueError("aes_composition: a table or cum row outside vals")
+    if not 0 <= max_row < R:
+        raise ValueError("aes_composition: a staged row lies outside vals")
     if not all(0 <= v < (1 << 31) - 1 for v in za):
         raise ValueError("aes_composition: a challenge component is not canonical")
-    n_slices = bounds.numel() - 1
     if not 1 <= n_slices <= 65535:
         raise ValueError(f"aes_composition: {n_slices} slices")
+    points, threads, slices_first = aes_composition_plan(M)
+    if vals.data_ptr() % (4 * points) or weights.data_ptr() % 16:
+        raise ValueError("aes_composition: vals or weights misaligned")
     partial = torch.empty((n_slices, 4, M), dtype=torch.int32, device=vals.device)
     out = torch.empty((4, M), dtype=torch.int32, device=vals.device)
     if M == 0:
         return out
     rc = _lib().zksc_aes_composition(
-        vals.data_ptr(), M, perm.data_ptr(), idx.data_ptr(),
-        (ctypes.c_longlong * 6)(*off), (ctypes.c_longlong * 6)(*n),
-        (ctypes.c_int * 12)(*rows), (ctypes.c_uint * 8)(*za),
-        bounds.data_ptr(), n_slices, weights.data_ptr(), partial.data_ptr(),
-        vn_inv.data_ptr(), out.data_ptr(), _stream(vals))
+        vals.data_ptr(), M, perm.data_ptr(), (ctypes.c_uint * 8)(*za),
+        hdr.data_ptr(), srows.data_ptr(), n_slices, weights.data_ptr(), points,
+        threads, int(R * M >= WIDE_OFFSETS_FROM), int(slices_first),
+        partial.data_ptr(), vn_inv.data_ptr(), out.data_ptr(), _stream(vals))
     _raise_on(rc, "aes_composition")
     LAUNCHES["aes_composition"] += 2   # aes_composition_kernel, composition_finish_kernel
     return out

@@ -191,17 +191,18 @@ def _sigma_on(log_rows: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=4)
 def _groups_on(key_size: int, device: torch.device) -> tuple:
-    """K7d's packed index groups of aes_air.layout(key_size) and its slice
-    bounds on `device`, kept for the process's lifetime: (idx, off, n,
-    rows, bounds)."""
+    """K7d's staging table of aes_air.layout(key_size) (aes_slice_table over
+    aes_slices' bounds) on `device`, kept for the process's lifetime:
+    (hdr, srows, n, max_row), aes_composition's `table`."""
     n1, n2, groups = aes_air.layout(key_size)
     idx, off, n, rows = stark_kernels.pack_aes_groups(groups)
     R = n1 + n2 + aes_air.N_PUB + 1
     if min(idx.min(), *rows) < 0 or max(idx.max(), *rows) >= R:
         raise ValueError("an index group reaches outside the value rows")
-    bounds = stark_kernels.aes_slices(n)
-    return (torch.from_numpy(idx).to(device), off, n, rows,
-            torch.from_numpy(bounds).to(device))
+    hdr, srows = stark_kernels.aes_slice_table(idx, off, n, rows,
+                                               stark_kernels.aes_slices(n))
+    return (torch.from_numpy(hdr).to(device), torch.from_numpy(srows).to(device),
+            n, int(srows.max()))
 
 
 def _denominators(u, v, z4, a4) -> tuple:
@@ -341,8 +342,7 @@ def _composition(vals: torch.Tensor, key_size: int, log_rows: int, z4, a4,
         q = _composition_plain(vals, perm, aes_air.layout(key_size)[2], z4, a4,
                                w, vn_inv)
     else:
-        idx, off, n, rows, bounds = _groups_on(key_size, dev)
-        q = stark_kernels.aes_composition(vals, perm, idx, off, n, rows, bounds,
+        q = stark_kernels.aes_composition(vals, perm, _groups_on(key_size, dev),
                                           (*z4, *a4), w, vn_inv)
     return q.cpu().numpy().view(np.uint32)
 

@@ -13,10 +13,20 @@ Domain ordering: index i < N/2 holds G_{n+1}^(2i+1); index N/2 + i holds its
 conjugate. At every x-level the +-x pairing is (i, m-1-i).
 
 ``interpolate`` and ``evaluate`` work on a batch of columns [C, N] (the
-reference vmaps them). On a CUDA tensor each fold layer is one K7b launch
-(ops/stark_kernels.circle_layer); on a CPU tensor each is ``layer_plain``,
-the reference's fold (circle.py:103-135) on the same chunk-major layout. The twiddles are computed on the
-host as in the reference and copied to the device once per CircleFFT.
+reference vmaps them); ``evaluate`` also takes [C, K] with K <= N, the
+coefficients past K being zero. On a CUDA tensor the shape rule, decided
+on N before any launch, is:
+
+  - N <= 2^FFT_MAX_LOG (2^15 values, 128 KB a column): the whole transform
+    is one K7b launch (ops/stark_kernels.circle_fft), each column held in
+    shared memory;
+  - larger N: one K7b launch per fold layer (ops/stark_kernels.circle_layer),
+    through device memory.
+
+On a CPU tensor each layer is ``layer_plain``, the reference's fold
+(circle.py:103-135) on the same chunk-major layout. The twiddles are
+computed on the host as in the reference and copied to the device once per
+CircleFFT.
 """
 from __future__ import annotations
 
@@ -103,45 +113,77 @@ class CircleFFT:
 
     def twiddles(self, device) -> dict:
         """{"y", "inv_y": [N/2], "x", "inv_x": per-level lists} as int32
-        tensors on `device` (made once per device)."""
+        tensors on `device`, and circle_fft's packed twiddles "fft_interp",
+        "fft_eval" [N]: the layer of width w at [N - 2w, N - w) (the
+        y-layer first); interpolate's inverted and halved (made once per
+        device)."""
         device = torch.device(device)
         if device not in self._tw:
             t = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+
+            def packed(levels):
+                out = np.zeros(self.n, dtype=np.uint64)
+                out[:self.n - 1] = np.concatenate(levels)
+                return out
+            ys = self.domain_y[: self.n // 2]
+            inv = packed([self._inv_y, *self._inv_x_levels]) * INV2 % P31
             self._tw[device] = {
-                "y": t(self.domain_y[: self.n // 2]), "inv_y": t(self._inv_y),
+                "y": t(ys), "inv_y": t(self._inv_y),
                 "x": [t(lvl) for lvl in self._x_levels],
-                "inv_x": [t(lvl) for lvl in self._inv_x_levels]}
+                "inv_x": [t(lvl) for lvl in self._inv_x_levels],
+                "fft_interp": t(inv), "fft_eval": t(packed([ys, *self._x_levels]))}
         return self._tw[device]
 
-    def _check(self, a: torch.Tensor, what: str):
-        if a.dim() != 2 or a.shape[1] != self.n:
-            raise ValueError(f"{what}: expected [C, {self.n}], got {tuple(a.shape)}")
+    def _check(self, a: torch.Tensor, what: str, short: bool = False):
+        if a.dim() != 2 or not (a.shape[1] <= self.n if short else a.shape[1] == self.n):
+            want = f"[C, K <= {self.n}]" if short else f"[C, {self.n}]"
+            raise ValueError(f"{what}: expected {want}, got {tuple(a.shape)}")
+
+    def _zero_extend(self, a: torch.Tensor) -> torch.Tensor:
+        if a.shape[1] == self.n:
+            return a
+        out = torch.zeros((a.shape[0], self.n), dtype=torch.int32, device=a.device)
+        out[:, :a.shape[1]] = a
+        return out
 
     # ---- transforms ----
 
     def interpolate(self, evals: torch.Tensor) -> torch.Tensor:
         """evals [C, N] on the domain -> coefficients int32 [C, N]: K7b on a
-        CUDA tensor, the plain version on a CPU tensor."""
+        CUDA tensor (one launch up to 2^FFT_MAX_LOG, else one a layer), the
+        plain version on a CPU tensor."""
         self._check(evals, "interpolate")
         if evals.device.type == "cpu":
             return self.interpolate_plain(evals)
-        return self._transform(evals, True, stark_kernels.circle_layer)
+        return self._kernels(evals, True)
 
     def evaluate(self, coeffs: torch.Tensor) -> torch.Tensor:
-        """coefficients [C, N] -> evaluations int32 [C, N] on the domain: K7b
-        on a CUDA tensor, the plain version on a CPU tensor."""
-        self._check(coeffs, "evaluate")
+        """coefficients [C, K] (K <= N; those past K are zero) ->
+        evaluations int32 [C, N] on the domain: K7b on a CUDA tensor (one
+        launch up to 2^FFT_MAX_LOG, reading the K coefficients, else one a
+        layer), the plain version on a CPU tensor."""
+        self._check(coeffs, "evaluate", short=True)
         if coeffs.device.type == "cpu":
             return self.evaluate_plain(coeffs)
-        return self._transform(coeffs, False, stark_kernels.circle_layer)
+        return self._kernels(coeffs, False)
 
     def interpolate_plain(self, evals: torch.Tensor) -> torch.Tensor:
         self._check(evals, "interpolate")
         return self._plain(evals, True)
 
     def evaluate_plain(self, coeffs: torch.Tensor) -> torch.Tensor:
-        self._check(coeffs, "evaluate")
-        return self._plain(coeffs, False)
+        self._check(coeffs, "evaluate", short=True)
+        return self._plain(self._zero_extend(coeffs.to(torch.int32)), False)
+
+    def _kernels(self, x: torch.Tensor, interp: bool) -> torch.Tensor:
+        """The transform through K7b by the shape rule: one circle_fft
+        launch for N <= 2^FFT_MAX_LOG (evaluate reading only x's K
+        columns of coefficients), else one circle_layer launch a layer."""
+        x = x.to(torch.int32).contiguous()
+        if self.log_n <= stark_kernels.FFT_MAX_LOG:
+            tw = self.twiddles(x.device)["fft_interp" if interp else "fft_eval"]
+            return stark_kernels.circle_fft(x, interp, self.log_n, tw)
+        return self._transform(self._zero_extend(x), interp, stark_kernels.circle_layer)
 
     def _plain(self, x: torch.Tensor, interp: bool) -> torch.Tensor:
         """The transform by layer_plain, PLAIN_COLUMNS columns at a time."""

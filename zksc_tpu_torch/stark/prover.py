@@ -321,10 +321,14 @@ def _lde(fft_n: CircleFFT, fft_m: CircleFFT, cols: np.ndarray, n_blinded: int,
          blind: np.ndarray, device) -> torch.Tensor:
     """The values [rows of cols + 1, M] on `device`: the low-degree
     extension of each column of `cols` [*, N] (its first n_blinded columns
-    with the blinding coefficients at [N, N + ZK_COEFFS)), and a zero row."""
+    with the blinding coefficients at [N, N + ZK_COEFFS)), and a zero row.
+    The evaluation reads only the coefficients that can be non-zero: a
+    block [rows + 1, K], K = N + ZK_COEFFS rounded up to a multiple of 4
+    (N without blinding); the rest are zero."""
     n, m = fft_n.n, fft_m.n
     coeffs = fft_n.interpolate(torch.from_numpy(cols.astype(np.int32)).to(device))
-    cm = torch.zeros((cols.shape[0] + 1, m), dtype=torch.int32, device=device)
+    k = min(m, -(-(n + ZK_COEFFS) // 4) * 4) if n_blinded else n
+    cm = torch.zeros((cols.shape[0] + 1, k), dtype=torch.int32, device=device)
     cm[:cols.shape[0], :n] = coeffs
     if n_blinded:
         cm[:n_blinded, n:n + ZK_COEFFS] = torch.from_numpy(

@@ -8,9 +8,9 @@ of the values differ. So here:
 
   interpolate: gather the stored rows into CircleFFT's domain order, then
                CircleFFT(log n).interpolate;
-  evaluate:    zero-pad the coefficients to 2^log_domain, CircleFFT(
-               log_domain).evaluate, then gather the rows back to stored
-               order.
+  evaluate:    CircleFFT(log_domain).evaluate of the m coefficients (the
+               rest of the 2^log_domain are zero), then gather the rows
+               back to stored order.
 
 Both gathers come from one row map a log size (``row_map``), built from the
 domain points: neither is a plain bit reversal. CircleFFT runs K7b on a
@@ -64,12 +64,8 @@ def evaluate(coeffs: torch.Tensor, log_domain: int) -> torch.Tensor:
     """coefficients [C, m] (m <= 2^log_domain) -> values int32 [C,
     2^log_domain] on CanonicCoset(log_domain)'s circle domain, stored
     order."""
-    C, m = coeffs.shape
-    n = 1 << log_domain
-    padded = torch.zeros((C, n), dtype=torch.int32, device=coeffs.device)
-    padded[:, :m] = coeffs
     _, to_stored = _maps_on(log_domain, coeffs.device)
-    return fft(log_domain).evaluate(padded)[:, to_stored]
+    return fft(log_domain).evaluate(coeffs)[:, to_stored]
 
 
 def lde(values: torch.Tensor, log_blowup: int = 1) -> torch.Tensor:
