@@ -184,8 +184,20 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      gen_oneblock_artifacts_torch.py followed by one proof with its key,
      and the two that need the reference checkout, which must exit
      non-zero naming the missing file.
+ 14. the batched Groth16 path (ProverContext._h_pipeline_batch: one H
+     pass for k proofs; the witnesses built on min(4, k) threads):
+     api.generate_proofs("chacha20", ...) over k = 1, 2 and 4 consecutive
+     128-byte chunks of one stream with the committed key, and
+     aes-128-ctr over k = 4 80-byte chunks with phase 6's contributed key;
+     each k twice (first at this k, then warm: launch counters reset just
+     before, K1 and K2 > 0; stage seconds, peak device memory), k = 4 once
+     more with its kernel calls recorded for phase 5; every proof of the
+     warm batch verifies and rejects a flipped ciphertext byte;
+     compute_h_batch at each k equals the per-proof _h_core limb for limb,
+     and its kernel launches (the host's launch calls under torch.profiler)
+     at k = 4 are at most 1.01x those at k = 1.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
-     6, 7, 8, 9, 10 and 11): the first of the largest inputs each kernel
+     6, 7, 8, 9, 10, 11 and 14): the first of the largest inputs each kernel
      variant got in
      each path is replayed through the kernel and its plain version (equal
      limb for limb; for K3 over more than 128 lanes the plain version runs
@@ -199,7 +211,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      call of one warm chacha20 and one warm aes-128-ctr proof is replayed
      in order: per kernel the launches, the summed ms, the summed bound and
      the adds whose Q is affine, which also go into the kernels line;
-     likewise for the recorded chacha20-toprf proof of phase 8. For the
+     likewise for the recorded chacha20-toprf proof of phase 8 and phase
+     14's warm k = 4 batches. For the
      stark engine's warm proofs (phase 9's chacha20 chunk and record, phase
      10's aes-128-ctr chunk and aes-256-ctr record, phase 11's stark-stwo
      chunk and record): the largest call of each K7
@@ -3227,6 +3240,147 @@ def drive_mesh(api, reset_counts, counts) -> dict:
     return out
 
 
+BATCH_SEED = 2026         # phase 14's requests and blinding
+
+
+def h_pipeline_launches(ctx, z_mont):
+    """One compute_h_batch under torch.profiler (CUDA activity alone): (h,
+    kernel launches, device ms), read from the raw trace events (building
+    key_averages' event tree for ~40K launches takes tens of seconds). The
+    launches are the host's launch calls: at AES's sizes the card's own
+    kernel records come back a few dozen to a few hundred short in some
+    runs, so they give the device ms alone. Raises when the profiler sees
+    no launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h = ctx.compute_h_batch(z_mont)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    n = sum(1 for e in events
+            if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    if n == 0:
+        raise AssertionError("phase 14: the profiler saw no kernel launch")
+    dev_ms = sum(e.duration_ns() for e in events
+                 if e.device_type() == DeviceType.CUDA) / 1e6
+    return h, n, dev_ms
+
+
+def drive_batch(api, reset_counts, counts, recs) -> dict:
+    """Phase 14: api.generate_proofs at k = 1, 2, 4 (chacha20, the
+    committed key) and k = 4 (aes-128-ctr, phase 6's contributed key), k
+    consecutive chunks of one stream. Each k proves first at this k, then
+    warm (launch counters reset just before each, K1 and K2 > 0; stage
+    seconds, peak device memory above what was held before), k = 4 once
+    more under recs[alg], which logs its kernel calls for phase 5; every
+    proof of the warm batch verifies and rejects a flipped ciphertext
+    byte. compute_h_batch at each k (and k = 1 for AES) equals the
+    per-proof _h_core limb for limb, and its kernel launches
+    (torch.profiler) at k = 4 are at most 1.01x those at k = 1. Returns the
+    K1 / K2 launches of each warm k = 4 batch."""
+    import random
+    t0 = time.time()
+    rnd = random.Random(BATCH_SEED)
+    blind = random.Random(BATCH_SEED + 1)
+    rng = lambda: blind.randrange(1, 1 << 250)
+    out = {}
+    for alg, key_len, chunk, ks in (("chacha20", 32, 128, (1, 2, 4)),
+                                    ("aes-128-ctr", 16, 80, (4,))):
+        key = bytes(rnd.randrange(256) for _ in range(key_len))
+        iv = bytes(rnd.randrange(256) for _ in range(12))
+        reqs = [{"key": key, "iv": iv, "offset_bytes": j * chunk,
+                 "ciphertext": bytes(rnd.randrange(256) for _ in range(chunk))}
+                for j in range(max(ks))]
+        op = api.get_operator(alg, "groth16", "cuda")
+        out[alg] = prove_batches(api, alg, op, reqs, ks, rng, recs[alg],
+                                 reset_counts, counts)
+        h_batches(api, alg, op, reqs, ks)
+    log(f"phase 14 total {time.time() - t0:.2f} s")
+    return out
+
+
+def prove_batches(api, alg, op, reqs, ks, rng, rec, reset_counts,
+                  counts) -> dict:
+    """Phase 14's proofs of one statement: each k first and warm, and k = 4
+    once more with `rec` logging its kernel calls (its seconds and memory
+    include the recorder's). Returns the warm k = 4 batch's K1 / K2
+    launches."""
+    import torch
+    for k in ks:
+        for run in ("first", "warm") + (("recorded",) if k == 4 else ()):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.time()
+            if run == "recorded":
+                with rec:
+                    rec.window = True
+                    api.generate_proofs(alg, reqs[:k], device="cuda", rng=rng)
+                    rec.window = False
+            else:
+                envs = api.generate_proofs(alg, reqs[:k], device="cuda",
+                                           rng=rng)
+            torch.cuda.synchronize()
+            prove_s = time.time() - t
+            peak = torch.cuda.max_memory_allocated() - held
+            stages = " ".join(f"{n}={v:.3f}" for n, v in op.timings.items())
+            log(f"phase 14 {alg} k={k} {run}: {prove_s:.3f} s "
+                f"({prove_s / k:.3f} s a proof; {stages}); launches "
+                f"{counts()}; peak device memory {peak / 2**30:.3f} GiB above "
+                f"the {held / 2**30:.3f} GiB held before")
+            if run == "warm":
+                launches = counts()
+        for name in ("chunk_scan", "jac_add_n"):
+            if launches[name] <= 0:
+                raise AssertionError(f"phase 14: {name} was not launched by "
+                                     f"the {alg} batch of {k}")
+        t = time.time()
+        for env, r in zip(envs, reqs):
+            ct, off = r["ciphertext"], r["offset_bytes"]
+            if not api.verify_proof(env, ct, r["iv"], off, device="cuda"):
+                raise AssertionError(f"phase 14: an {alg} proof of the batch "
+                                     f"of {k} did not verify")
+            bad = ct[:3] + bytes([ct[3] ^ 4]) + ct[4:]
+            if api.verify_proof(env, bad, r["iv"], off, device="cuda"):
+                raise AssertionError(f"phase 14: a tampered {alg} ciphertext "
+                                     "verified")
+        log(f"phase 14 {alg} k={k}: {k} proofs verify, {k} tampered "
+            f"ciphertexts rejected ({time.time() - t:.2f} s)")
+    return {n: launches[n] for n in ("chunk_scan", "jac_add_n")}
+
+
+def h_batches(api, alg, op, reqs, ks):
+    """Phase 14's H pipeline of one statement at each k and at k = 1: equal
+    to the per-proof _h_core, and at k = 4 at most 1.01x k = 1's CUDA
+    launches."""
+    import torch
+    ctx = op._ctx
+    h_launches = {}
+    for k in sorted(set(ks) | {1}):
+        wis = [api.generate_zk_witness(alg, r["key"], r["ciphertext"],
+                                       r["iv"], r["offset_bytes"])
+               for r in reqs[:k]]
+        z_mont, _, _ = ctx._witnesses_to_device(
+            [op.spec.build_witness(wi) for wi in wis])
+        h, n, dev_ms = h_pipeline_launches(ctx, z_mont)
+        one = torch.stack([ctx._h_core(z_mont[:, j]) for j in range(k)],
+                          dim=1)
+        if not torch.equal(h, one):
+            raise AssertionError(f"phase 14: the batched {alg} h of {k} "
+                                 "proofs differs from the per-proof h")
+        h_launches[k] = n
+        log(f"phase 14 {alg} H pipeline k={k}: {n} kernel launches, device "
+            f"{dev_ms:.2f} ms (profiled); equal to the per-proof h")
+    ratio = h_launches[4] / h_launches[1]
+    log(f"phase 14 {alg} H pipeline launches k=4 / k=1: {ratio:.4f}")
+    if ratio > 1.01:
+        raise AssertionError(f"phase 14: the {alg} H pipeline launches "
+                             f"{ratio:.4f}x as much at k=4 as at k=1")
+
+
 def prove_one_block(api):
     """One proof with the key gen_oneblock_artifacts_torch.py wrote: the
     1-block chacha20 circuit, verified, a flipped public bit rejected."""
@@ -3579,14 +3733,24 @@ def main(argv) -> int:
     mesh_launches = drive_mesh(api, reset_counts, counts)
     log(f"phase 13 added {time.time() - t:.2f} s")
 
+    # ---- 14. the batched Groth16 path: k proofs in one pass
+    rec_batch = {"chacha20": Recorder(), "aes-128-ctr": Recorder()}
+    batch_launches = drive_batch(api, reset_counts, counts, rec_batch)
+
     # ---- 5. kernels at the paths' shapes
     rows = (time_kernels(rec_chacha.calls, imad_rate, "chacha20")
             + time_kernels(rec_aes.calls, imad_rate, "aes-128-ctr")
             + time_kernels(rec_ladder.calls, imad_rate, "ladder branch")
-            + time_kernels(rec_toprf.calls, imad_rate, "chacha20-toprf"))
+            + time_kernels(rec_toprf.calls, imad_rate, "chacha20-toprf")
+            + time_kernels(rec_batch["chacha20"].calls, imad_rate,
+                           "chacha20 k=4")
+            + time_kernels(rec_batch["aes-128-ctr"].calls, imad_rate,
+                           "aes-128-ctr k=4"))
     per_proof = {}
     for path, rec in (("chacha20", rec_chacha), ("aes-128-ctr", rec_aes),
-                      ("chacha20-toprf", rec_toprf)):
+                      ("chacha20-toprf", rec_toprf),
+                      ("chacha20 k=4", rec_batch["chacha20"]),
+                      ("aes-128-ctr k=4", rec_batch["aes-128-ctr"])):
         per_proof[path] = proof_totals(rec.log, imad_rate, path, counts,
                                        reset_counts)
         rec.log = []
@@ -3617,10 +3781,14 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         dict(head("chunk_scan", "zksc_tpu/ops/pallas_ec.py:120", ec_src,
                   "chacha20", "G1 inclusive=True", launches["chunk_scan"]),
-             launches_mesh4=mesh_launches["chacha20"]["chunk_scan"]),
+             launches_mesh4=mesh_launches["chacha20"]["chunk_scan"],
+             launches_batch4={a: n["chunk_scan"]
+                              for a, n in batch_launches.items()}),
         dict(head("jac_add_n", "zksc_tpu/ops/pallas_ec.py:162", ec_src,
                   "chacha20", "G1 complete=False", launches["jac_add_n"]),
-             launches_mesh4=mesh_launches["chacha20"]["jac_add_n"]),
+             launches_mesh4=mesh_launches["chacha20"]["jac_add_n"],
+             launches_batch4={a: n["jac_add_n"]
+                              for a, n in batch_launches.items()}),
         # K3's plain time is that of the check size (phase 3, N=4,096 x 32
         # bits): the plain ladder at the ceremony's shape takes minutes
         dict(head("ladder", "zksc_tpu/ops/pallas_msm.py:58",

@@ -4,7 +4,8 @@ Pipeline (the JAX package's ``groth16/prove.py``):
 
   1. sparse A/B/C constraint evaluation: gather + per-limb segment sum
      (lazy int64 accumulation, then one Montgomery wide-reduce per element)
-  2. H(x) quotient via coset NTT (ops/ntt.py, bit-reversal-free pipeline)
+  2. H(x) quotient via coset NTT (ops/ntt.py, bit-reversal-free pipeline),
+     one pass for the k proofs of a batch (_h_pipeline_batch)
   3. five MSMs (A, B1, C and H over G1, B2 over G2): bucket MSMs
      (ops/msm.py, point additions in the kernels K1/K2 on the GPU) for
      m_pad >= 256 or with force_pippenger, else batched double-and-add
@@ -219,14 +220,15 @@ class ProverContext:
         return [functools.reduce(add, (p[j] for p in pts)) for j in range(k)]
 
     def _matvec(self, mat, z_mont):
-        """<M, z> per constraint row: returns [L, domain_n] Montgomery evals."""
+        """<M, z> per constraint row of every proof: z_mont [L, k, m_pad]
+        -> [L, k, domain_n] Montgomery evals."""
         rows, cols, coeffs = mat
-        gathered = z_mont[:, cols]                     # [L, nnz]
-        prod = Fr.mont_mul(gathered, coeffs)           # Montgomery form
+        gathered = z_mont[:, :, cols]                  # [L, k, nnz]
+        prod = Fr.mont_mul(gathered, coeffs[:, None, :])   # Montgomery form
         # per-limb lazy segment sum; each limb < 2^16, rows have < 2^16 terms
-        sums = torch.zeros((Fr.L, self.ntt.n), dtype=torch.int64,
-                           device=z_mont.device)
-        sums.index_add_(1, rows, prod.to(torch.int64))
+        sums = torch.zeros((Fr.L, z_mont.shape[1], self.ntt.n),
+                           dtype=torch.int64, device=z_mont.device)
+        sums.index_add_(2, rows, prod.to(torch.int64))
         norm = Fr.normalize_u32_limbs([sums[j] for j in range(Fr.L)])
         plain = Fr.mont_reduce_wide(norm)              # drops one R factor
         return Fr.to_mont(plain)                       # restore Montgomery
@@ -255,28 +257,37 @@ class ProverContext:
         z_plain = z_plain[:, 0]
         return z_mont[:, 0], ec.scalars_to_bits(Fr, z_plain, n_bits), n_bits
 
-    def _h_core(self, z_mont_1):
-        """One proof's quotient: z_mont [L, m_pad] -> h [L, n] plain limbs
-        (bit-reversed coefficient order, matching the h_query layout)."""
-        az = self._matvec(self._mats[0], z_mont_1)
-        bz = self._matvec(self._mats[1], z_mont_1)
-        cz = self._matvec(self._mats[2], z_mont_1)
+    def _h_pipeline_batch(self, z_mont):
+        """The quotient of k proofs in one pass: z_mont [L, k, m_pad] -> h
+        [L, k, n] plain limbs (bit-reversed coefficient order, matching the
+        h_query layout). Every op takes the whole batch, so the number of
+        ops launched does not depend on k (the JAX package vmaps its
+        one-proof program over the proof axis)."""
+        az = self._matvec(self._mats[0], z_mont)
+        bz = self._matvec(self._mats[1], z_mont)
+        cz = self._matvec(self._mats[2], z_mont)
         ntt = self.ntt
         a_cs = ntt.coset_evals_from_coeffs_br(ntt.dif_inverse(az))
         b_cs = ntt.coset_evals_from_coeffs_br(ntt.dif_inverse(bz))
         c_cs = ntt.coset_evals_from_coeffs_br(ntt.dif_inverse(cz))
         num = Fr.sub(Fr.mont_mul(a_cs, b_cs), c_cs)
-        zinv = Fr.broadcast_const(pow(ntt.z_coset_int, -1, host.R), (1,),
-                                  device=z_mont_1.device)
+        zinv = Fr.broadcast_const(pow(ntt.z_coset_int, -1, host.R), (1, 1),
+                                  device=z_mont.device)
         h_cs = Fr.mont_mul(num, zinv)
         h_br = ntt.coeffs_br_from_coset_evals(h_cs)
         return Fr.from_mont(h_br)
 
+    def _h_core(self, z_mont_1):
+        """One proof's quotient: z_mont [L, m_pad] -> h [L, n] plain limbs."""
+        return self._h_pipeline_batch(z_mont_1[:, None])[:, 0]
+
     def compute_h_batch(self, z_mont):
-        """z_mont [L, k, m_pad] -> h [L, k, n] plain limbs (sharded over the
-        mesh when it tiles the domain)."""
-        core = self._h_sharded or self._h_core
-        return torch.stack([core(z_mont[:, j])
+        """z_mont [L, k, m_pad] -> h [L, k, n] plain limbs: one pass over the
+        k proofs, or, when the mesh tiles the domain, one sharded pass a
+        proof, as the JAX package does."""
+        if self._h_sharded is None:
+            return self._h_pipeline_batch(z_mont)
+        return torch.stack([self._h_sharded(z_mont[:, j])
                             for j in range(z_mont.shape[1])], dim=1)
 
     def prove(self, witness: np.ndarray, rng=None) -> Proof:

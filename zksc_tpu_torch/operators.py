@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -196,7 +197,13 @@ class Groth16Operator:
         """Prove several chunks in one device pass."""
         self._ensure_keys()
         t0 = time.perf_counter()
-        witnesses = [self.spec.build_witness(wi) for wi in wis]
+        if len(wis) > 1:
+            # independent witness builds, in order: the native tape's ctypes
+            # call releases the GIL, so the threads overlap their tape runs
+            with ThreadPoolExecutor(max_workers=min(4, len(wis))) as ex:
+                witnesses = list(ex.map(self.spec.build_witness, wis))
+        else:
+            witnesses = [self.spec.build_witness(wi) for wi in wis]
         if os.environ.get("ZKSC_CHECK_WITNESS", "0") == "1":
             for witness in witnesses:
                 if not check_witness(self.spec.cs, witness[:, None]):

@@ -61,34 +61,42 @@ def _powers(base: int, count: int, p: int) -> list:
 
 
 def dif_stages(F: LimbField, x, tw_inv: dict, top: int):
-    """DIF butterfly stages of spans top, top/2, ..., 2 over x [L, m] (m a
-    multiple of top): (u, v) -> (u + v, (u - v) * tw). tw_inv[span]: the
-    span's twiddles [L, span/2]."""
-    m = x.shape[-1]
+    """DIF butterfly stages of spans top, top/2, ..., 2 over x [L, *batch, m]
+    (m a multiple of top), each row on its own: (u, v) -> (u + v,
+    (u - v) * tw). tw_inv[span]: the span's twiddles [L, span/2]."""
+    shape = x.shape
     length = top
     while length >= 2:
-        x = x.reshape(F.L, m // length, length)
+        x = x.reshape(F.L, -1, length)
         u = x[:, :, : length // 2]
         v = x[:, :, length // 2:]
         hi = F.mont_mul(F.sub(u, v), tw_inv[length][:, None, :])
-        x = torch.cat([F.add(u, v), hi], dim=2).reshape(F.L, m)
+        x = torch.cat([F.add(u, v), hi], dim=2)
         length //= 2
-    return x
+    return x.reshape(shape)
 
 
 def dit_stages(F: LimbField, x, tw_fwd: dict, top: int):
-    """DIT butterfly stages of spans 2, 4, ..., top over x [L, m]:
-    (u, v) -> (u + v * tw, u - v * tw)."""
-    m = x.shape[-1]
+    """DIT butterfly stages of spans 2, 4, ..., top over x [L, *batch, m],
+    each row on its own: (u, v) -> (u + v * tw, u - v * tw)."""
+    shape = x.shape
     length = 2
     while length <= top:
-        x = x.reshape(F.L, m // length, length)
+        x = x.reshape(F.L, -1, length)
         u = x[:, :, : length // 2]
         v = x[:, :, length // 2:]
         vw = F.mont_mul(v, tw_fwd[length][:, None, :])
-        x = torch.cat([F.add(u, vw), F.sub(u, vw)], dim=2).reshape(F.L, m)
+        x = torch.cat([F.add(u, vw), F.sub(u, vw)], dim=2)
         length *= 2
-    return x
+    return x.reshape(shape)
+
+
+def _lift(c, x):
+    """A table c [L, *tail] viewed with a singleton axis for each batch axis
+    of x [L, *batch, *tail]. Left as it is, broadcasting would line c's
+    limb axis up with x's first batch axis: wrong limbs, and no error when
+    that axis has L entries."""
+    return c.reshape(c.shape[0], *([1] * (x.dim() - c.dim())), *c.shape[1:])
 
 
 class NTTContext:
@@ -136,9 +144,9 @@ class NTTContext:
 
     def dif_inverse(self, evals):
         """evals (natural order) -> coeffs (bit-reversed), includes 1/n
-        scale. evals: [L, n] Montgomery form."""
+        scale. evals: [L, *batch, n] Montgomery form, one transform a row."""
         x = dif_stages(self.F, evals, self._tw_inv, self.n)
-        return self.F.mont_mul(x, self._ninv)
+        return self.F.mont_mul(x, _lift(self._ninv, x))
 
     def dit_forward(self, coeffs_br):
         """coeffs (bit-reversed) -> evals (natural order)."""
@@ -146,10 +154,11 @@ class NTTContext:
 
     def coset_evals_from_coeffs_br(self, coeffs_br):
         """coeffs (bitrev) -> evaluations on the coset shift*<w> (natural)."""
-        scaled = self.F.mont_mul(coeffs_br, self.shift_pows_br)
+        scaled = self.F.mont_mul(coeffs_br,
+                                 _lift(self.shift_pows_br, coeffs_br))
         return self.dit_forward(scaled)
 
     def coeffs_br_from_coset_evals(self, evals):
         """evaluations on coset (natural) -> coeffs (bitrev)."""
         c = self.dif_inverse(evals)
-        return self.F.mont_mul(c, self.shift_inv_pows_br)
+        return self.F.mont_mul(c, _lift(self.shift_inv_pows_br, c))

@@ -16,6 +16,8 @@ to the exact Python builder. Cipher circuits (bit inputs, widest value the
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 OP_CONST, OP_ADD, OP_SUB, OP_MULK, OP_MUL, OP_XOR, OP_BIT = 1, 2, 3, 4, 5, 6, 7
@@ -227,6 +229,7 @@ class TapeBuilder:
 
 
 _TAPE_CACHE: dict = {}
+_TAPE_LOCK = threading.Lock()     # one build a circuit when threads race
 
 
 def clear_tape_cache():
@@ -243,8 +246,14 @@ def build_tape(define_fn, public_layout, private_layout,
     # key on the function OBJECT (not id()): holds a reference so a GC'd
     # define_fn's recycled id cannot alias a different circuit's tape
     key = (define_fn, tuple(public_layout), tuple(private_layout))
-    if key in _TAPE_CACHE:
+    with _TAPE_LOCK:
+        if key not in _TAPE_CACHE:
+            _TAPE_CACHE[key] = _record_tape(define_fn, public_layout,
+                                            private_layout, input_bound)
         return _TAPE_CACHE[key]
+
+
+def _record_tape(define_fn, public_layout, private_layout, input_bound):
     try:
         api = TapeBuilder(input_bound=input_bound)
         vars_ = {}
@@ -253,8 +262,6 @@ def build_tape(define_fn, public_layout, private_layout,
         for name, count in private_layout:
             vars_[name] = [api.alloc_input() for _ in range(count)]
         define_fn(api, vars_)
-        tape = api.finish()
+        return api.finish()
     except TapeOverflow:
-        tape = None
-    _TAPE_CACHE[key] = tape
-    return tape
+        return None
