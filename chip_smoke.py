@@ -15,14 +15,16 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      power limit; fails without CUDA.
   2. build: the nvcc builds of the CUDA kernels (csrc/ec_kernels.cu ->
      build/libzksc_ec.so, csrc/msm_kernels.cu -> build/libzksc_msm.so,
-     csrc/stark_kernels.cu -> build/libzksc_stark.so, the nvcc processes
-     started together) and the g++ build of the witness-tape library, with
+     csrc/stark_kernels.cu -> build/libzksc_stark.so, csrc/h_kernels.cu ->
+     build/libzksc_h.so, the nvcc processes started together) and the g++ build of the witness-tape library, with
      their seconds; then, from ptxas, each kernel instance's registers,
      stack and spill bytes (K3: lane_kernel and split_kernel, each for Fp
      and Fp2h; K7a blake2s_kernel and blake2s_tree_kernel, K7b
      circle_fft_kernel<interp, B, threads> and circle_layer_kernel<interp,
      rev>, K7c composition_kernel<offset, points> and
-     composition_finish_kernel, K7d aes_composition_kernel<offset, points>).
+     composition_finish_kernel, K7d aes_composition_kernel<offset, points>;
+     the H kernels: K0 fr_elementwise_kernel<quotient>, K4
+     ntt_group_kernel<dif, dit>, K5 sparse_matvec_kernel).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -71,14 +73,24 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      sigma as the prover's, in the wrapper's plan (aes_composition_plan),
      timed beside its bound; each K7c line
      names the launch shape the wrapper picked (composition_plan).
+     The Groth16 H kernels, each equal to its plain version limb for limb
+     (check_h_kernels): K0 (to_mont and the quotient) over 8,191
+     elements, K4 every transform form at 2^8 and 2^10 with a 2^4 tile
+     (two and three launches a direction) and at 2^12 in one group, K5 over
+     1,000 rows with empty and 300-term rows; then at n = 2^16, 2^17 and
+     2^18 with k = 1 and 4: to_mont of [16, k, n], K5 over a random CSR of
+     n rows, K4's coset pass over [16, 3k, n], the quotient over
+     [16, 3, k, n] and K4's way back with from_mont over [16, k, n], each
+     timed beside its bound.
      Then the Merkle crossover: whole trees of 4-4,096 16-byte leaves or 8-word
      column leaves by hashlib and by K7a's tree launch (with its copies),
      host clock.
   4. main path at full size: api.generate_proof("chacha20", ...) twice on
      a 128-byte chunk with the committed artifacts/chacha20 key (45,217
      wires, domain 2^16); api.verify_proof must accept it and reject a
-     ciphertext with one byte flipped; both kernels' launch counters (reset
-     just before the second proof) must be > 0.
+     ciphertext with one byte flipped; the launch counters of K1, K2 and
+     the H kernels K0, K4, K5 (reset just before the second proof) must
+     be > 0.
   6. keys made on the card, at full width: the aes-128-ctr and aes-256-ctr
      circuits compile to the digests of the committed manifests; keygen
      for aes-128-ctr (fixed --seed) into the port's key store; load_keys;
@@ -86,8 +98,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      verify_chain and verify_query_scaling; the contributed key saved to
      the store; api.generate_proof of an 80-byte aes-128-ctr chunk twice
      (cold, warm); verify_proof accepts it and rejects a flipped byte. The
-     launch counters are reset just before keygen and K1, K2 and K3 must
-     all be > 0 after the proofs. Seconds per stage and peak device memory.
+     launch counters are reset just before keygen and K1, K2, K3, K0, K4
+     and K5 must all be > 0 after the proofs. Seconds per stage and peak device memory.
   7. the ladder branch of ProverContext on the card: the x^13 toy circuit
      (m_pad 32: host B2, K3 for G1) and a 100-power circuit (m_pad 128: K3
      for G1 and G2), keys from the port's setup on the card; each proof
@@ -100,8 +112,8 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      t=2, a request over a redacted span of a 128-byte plaintext,
      evaluations by two shares, finalise); api.generate_proof(...,
      toprf=, mask=) with the key made here, cold, warm (launch counters
-     reset just before it, K1 and K2 must be > 0; stage seconds, peak
-     device memory) and once more for phase 5; verify_proof accepts the
+     reset just before it, K1, K2, K0, K4 and K5 must be > 0; stage
+     seconds, peak device memory) and once more for phase 5; verify_proof accepts the
      warm proof, whose envelope carries no plaintext, and rejects a
      flipped ciphertext byte, the TOPRF output plus one and the other
      share's response.
@@ -190,12 +202,13 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      128-byte chunks of one stream with the committed key, and
      aes-128-ctr over k = 4 80-byte chunks with phase 6's contributed key;
      each k twice (first at this k, then warm: launch counters reset just
-     before, K1 and K2 > 0; stage seconds, peak device memory), k = 4 once
+     before, K1, K2, K0, K4 and K5 > 0; stage seconds, peak device memory), k = 4 once
      more with its kernel calls recorded for phase 5; every proof of the
      warm batch verifies and rejects a flipped ciphertext byte;
      compute_h_batch at each k equals the per-proof _h_core limb for limb,
      and its kernel launches (the host's launch calls under torch.profiler)
-     at k = 4 are at most 1.01x those at k = 1.
+     are at most H_MAX_LAUNCHES (200) at every k, and at k = 4 at most
+     1.01x those at k = 1.
   5. kernel timing at the paths' shapes (run last, as it replays phases 4,
      6, 7, 8, 9, 10, 11 and 14): the first of the largest inputs each kernel
      variant got in
@@ -212,7 +225,12 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      in order: per kernel the launches, the summed ms, the summed bound and
      the adds whose Q is affine, which also go into the kernels line;
      likewise for the recorded chacha20-toprf proof of phase 8 and phase
-     14's warm k = 4 batches. For the
+     14's warm k = 4 batches. The H kernels (K0, K4, K5) of the same
+     chacha20, aes-128-ctr, chacha20-toprf and k = 4 runs: each variant's
+     largest call replayed through the kernel and its plain version
+     (equal), timed beside its bound (Fr products x 258 IMAD over the
+     card's rate, or the bytes read once and written once over HBM), then
+     every H call of each run summed per kernel. For the
      stark engine's warm proofs (phase 9's chacha20 chunk and record, phase
      10's aes-128-ctr chunk and aes-256-ctr record, phase 11's stark-stwo
      chunk and record): the largest call of each K7
@@ -1013,16 +1031,38 @@ class Recorder:
     first of the largest inputs a path gave it (`calls`); while `window` is
     set it also keeps every call in order (`log`), holding its inputs. On
     the ceremony's path the K3 input kept is h_query: it and c_query have
-    the same lane count, and _apply_delta scales h_query first."""
+    the same lane count, and _apply_delta scales h_query first. Likewise
+    for the Groth16 H kernels (`h_calls`, `h_log`): the h_kernels functions
+    groth16/prove.py calls and NTTContext._transform, on CUDA tensors."""
 
     def __init__(self):
-        from zksc_tpu_torch.ops import ec_kernels, msm_kernels
+        from zksc_tpu_torch.ops import ec_kernels, h_kernels, msm_kernels
+        from zksc_tpu_torch.ops.ntt import NTTContext
         self.mods = {"chunk_scan": ec_kernels, "jac_add_n": ec_kernels,
                      "ladder": msm_kernels}
         self.orig = {k: getattr(m, k) for k, m in self.mods.items()}
+        self.h_mods = {"to_mont": h_kernels, "quotient": h_kernels,
+                       "sparse_matvec": h_kernels, "_transform": NTTContext}
+        self.h_orig = {k: getattr(m, k) for k, m in self.h_mods.items()}
         self.calls = {}
         self.log = []
+        self.h_calls = {}
+        self.h_log = []
         self.window = False
+
+    def _h_wrap(self, attr):
+        fn = self.h_orig[attr]
+
+        def call(*args):
+            key, x = h_variant(attr, args)
+            if x.device.type == "cuda":
+                prev = self.h_calls.get(key)
+                if prev is None or x.numel() > prev[1]:
+                    self.h_calls[key] = (args, x.numel())
+                if self.window:
+                    self.h_log.append((key, args))
+            return fn(*args)
+        return call
 
     def __enter__(self):
         from zksc_tpu_torch.ops import ec, ec_kernels
@@ -1052,11 +1092,15 @@ class Recorder:
                  "ladder": ladder_mode}
         for name, mod in self.mods.items():
             setattr(mod, name, wrap(name, flags[name]))
+        for attr, mod in self.h_mods.items():
+            setattr(mod, attr, self._h_wrap(attr))
         return self
 
     def __exit__(self, *exc):
         for name, mod in self.mods.items():
             setattr(mod, name, self.orig[name])
+        for attr, mod in self.h_mods.items():
+            setattr(mod, attr, self.h_orig[attr])
 
 
 def kernel_fns(name):
@@ -1273,7 +1317,7 @@ def drive_aes(api, reset_counts, counts, rec) -> dict:
     launches = counts()
     log(f"phase 6 launches over keygen, ceremony and both proofs: {launches}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for k in ("chunk_scan", "jac_add_n", "ladder"):
+    for k in ("chunk_scan", "jac_add_n", "ladder") + H_NAMES:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the AES path")
     t = time.time()
@@ -1421,7 +1465,7 @@ def drive_toprf(api, alg: str, reset_counts, counts, rec) -> dict:
         f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
         f"{held / 2**30:.3f} GiB allocated before the proof (the key, and "
         f"earlier phases' recorded kernel inputs)")
-    for k in ("chunk_scan", "jac_add_n"):
+    for k in ("chunk_scan", "jac_add_n") + H_NAMES:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the "
                                  f"{alg} path")
@@ -3241,6 +3285,8 @@ def drive_mesh(api, reset_counts, counts) -> dict:
 
 
 BATCH_SEED = 2026         # phase 14's requests and blinding
+# the H pass's launch calls, at most (K0, K4, K5 and the glue around them)
+H_MAX_LAUNCHES = 200
 
 
 def h_pipeline_launches(ctx, z_mont):
@@ -3333,7 +3379,7 @@ def prove_batches(api, alg, op, reqs, ks, rng, rec, reset_counts,
                 f"the {held / 2**30:.3f} GiB held before")
             if run == "warm":
                 launches = counts()
-        for name in ("chunk_scan", "jac_add_n"):
+        for name in ("chunk_scan", "jac_add_n") + H_NAMES:
             if launches[name] <= 0:
                 raise AssertionError(f"phase 14: {name} was not launched by "
                                      f"the {alg} batch of {k}")
@@ -3349,7 +3395,7 @@ def prove_batches(api, alg, op, reqs, ks, rng, rec, reset_counts,
                                      "verified")
         log(f"phase 14 {alg} k={k}: {k} proofs verify, {k} tampered "
             f"ciphertexts rejected ({time.time() - t:.2f} s)")
-    return {n: launches[n] for n in ("chunk_scan", "jac_add_n")}
+    return {n: launches[n] for n in ("chunk_scan", "jac_add_n") + H_NAMES}
 
 
 def h_batches(api, alg, op, reqs, ks):
@@ -3374,6 +3420,9 @@ def h_batches(api, alg, op, reqs, ks):
         h_launches[k] = n
         log(f"phase 14 {alg} H pipeline k={k}: {n} kernel launches, device "
             f"{dev_ms:.2f} ms (profiled); equal to the per-proof h")
+        if n > H_MAX_LAUNCHES:
+            raise AssertionError(f"phase 14: the {alg} H pass at k={k} made "
+                                 f"{n} launches, above {H_MAX_LAUNCHES}")
     ratio = h_launches[4] / h_launches[1]
     log(f"phase 14 {alg} H pipeline launches k=4 / k=1: {ratio:.4f}")
     if ratio > 1.01:
@@ -3422,6 +3471,302 @@ def prove_one_block(api):
         f"({time.time() - t:.2f} s with compile and load)")
     if not (ok and rejected):
         raise AssertionError("phase 13: the 1-block proof failed")
+
+
+# ------------------------------------------------ the Groth16 H kernels
+
+H_SEED = 20246            # phase 3's H-kernel inputs
+H_NAMES = ("fr_elementwise", "ntt_group", "sparse_matvec")
+H_SRC = "zksc_tpu_torch/csrc/h_kernels.cu"
+# what each H kernel replaces in the JAX package (XLA-fused jnp there)
+H_REPLACES = {
+    "fr_elementwise": "zksc_tpu/groth16/prove.py:413 _h_core (Fr.mont_mul "
+                      "/ Fr.sub of the quotient) and :440 Fr.to_mont",
+    "ntt_group": "zksc_tpu/ops/ntt.py:107 dif_inverse, :125 dit_forward, "
+                 ":141 coset_evals_from_coeffs_br, :147 "
+                 "coeffs_br_from_coset_evals",
+    "sparse_matvec": "zksc_tpu/groth16/prove.py:183 _matvec"}
+# NTTContext._transform's (dif, dit, scale) -> the transform it computes
+NTT_FORMS = {(True, False, "ninv"): "dif_inverse",
+             (False, True, None): "dit_forward",
+             (False, True, "shift"): "coset_evals_from_coeffs_br",
+             (True, False, "ninv_shift_inv"): "coeffs_br_from_coset_evals",
+             (True, False, "ninv_shift_inv_plain"):
+                 "coeffs_br_from_coset_evals from_mont",
+             (True, True, "ninv_shift"): "coset_evals_from_evals"}
+# the boundary's bytes per Fr element: 16 int32 limbs
+FR_BYTES = 64
+
+
+def h_variant(attr, args):
+    """((kernel, variant), the tensor that sizes it) of a recorded H call."""
+    if attr == "_transform":
+        ctx, x, dif, dit, scale = args
+        return ("ntt_group", NTT_FORMS[(dif, dit, scale)]), x
+    if attr == "sparse_matvec":
+        return ("sparse_matvec", "A, B, C stacked"), args[0]
+    return ("fr_elementwise", attr), args[0]
+
+
+def h_fns(key, args):
+    """(kernel call, plain call) of a recorded H call."""
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.ops import h_kernels
+    name, variant = key
+    if name == "ntt_group":
+        ctx, x, dif, dit, scale = args
+        return (lambda: ctx._transform(x, dif, dit, scale),
+                lambda: ctx._transform_plain(x, dif, dit, scale))
+    if name == "sparse_matvec":
+        return (lambda: h_kernels.sparse_matvec(*args),
+                lambda: h_kernels.sparse_matvec_plain(*args))
+    if variant == "to_mont":
+        return (lambda: h_kernels.to_mont(args[0]),
+                lambda: Fr.to_mont(args[0]))
+    return (lambda: h_kernels.quotient(*args),
+            lambda: h_kernels.quotient_plain(*args))
+
+
+def h_shape(key, args) -> str:
+    name, variant = key
+    if name == "sparse_matvec":
+        z, csr = args
+        return (f"k={z.shape[1]} m_pad={z.shape[2]} n={csr.n} "
+                f"nnz={csr.cols.numel()}")
+    x = args[1] if name == "ntt_group" else args[0]
+    return "x".join(str(d) for d in x.shape)
+
+
+def h_bound_ms(key, args, imad_rate):
+    """(bound ms, bound_by, Fr products) of one H call: the products
+    (IMAD_PER_FP_MUL each; adds and subs not counted) over the card's IMAD
+    rate against the bytes over HBM: each input read once (the boundary's
+    64 B an element, 32 B a packed table entry or coefficient, 4 B a
+    column or row pointer), each output written once."""
+    name, variant = key
+    if name == "ntt_group":
+        ctx, x, dif, dit, scale = args
+        n = x.shape[-1]
+        rows = x.numel() // (16 * n)
+        log_n = n.bit_length() - 1
+        prods = rows * (n // 2) * log_n * (int(dif) + int(dit))
+        nbytes = 2 * FR_BYTES * rows * n + 32 * (n // 2) * (int(dif) + int(dit))
+        if scale is not None:
+            width = ctx._scales[scale].shape[-1]
+            prods += rows * n
+            nbytes += 32 * width
+    elif name == "sparse_matvec":
+        z, csr = args
+        k, m_pad = z.shape[1], z.shape[2]
+        nnz = csr.cols.numel()
+        prods = k * nnz
+        nbytes = (FR_BYTES * k * m_pad + 36 * nnz + 4 * (csr.M * csr.n + 1)
+                  + FR_BYTES * csr.M * k * csr.n)
+    elif variant == "to_mont":
+        N = args[0].numel() // 16
+        prods, nbytes = N, 2 * FR_BYTES * N
+    else:
+        N = args[0].numel() // 48
+        prods, nbytes = 2 * N, 4 * FR_BYTES * N
+    ops_ms = prods * IMAD_PER_FP_MUL / imad_rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"), prods
+
+
+def fr_random(shape, device, gen):
+    """Canonical Fr limbs [16, *shape] on the device: uniform 16-bit limbs,
+    the top one below r's (0x3064), and 0, 1, r - 1 as the first three
+    elements."""
+    import torch
+    from zksc_tpu_torch.fields.limb import Fr
+    x = torch.randint(0, 1 << 16, (Fr.L, *shape), generator=gen,
+                      dtype=torch.int32, device=device)
+    x[Fr.L - 1] %= 0x3064
+    flat = x.view(Fr.L, -1)
+    k = min(3, flat.shape[1])
+    flat[:, :k] = Fr.to_device([0, 1, Fr.p - 1], mont=False,
+                               device=device)[:, :k]
+    return x
+
+
+def random_csr(n: int, m_pad: int, rate: float, long_rows: int, rng,
+               device):
+    """Three stacked random matrices of n rows over m_pad columns: a
+    Poisson(rate) number of terms a row, every 7th row empty, `long_rows`
+    rows of 300 terms; random Montgomery coefficients."""
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.ops import h_kernels
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    mats = []
+    for _ in range(3):
+        counts = rng.poisson(rate, n)
+        counts[::7] = 0
+        counts[rng.integers(0, n, long_rows)] = 300
+        rows = np.repeat(np.arange(n), counts)
+        cols = rng.integers(0, m_pad, rows.size)
+        mats.append((torch.as_tensor(rows, device=device),
+                     torch.as_tensor(cols, device=device),
+                     fr_random((rows.size,), device, gen)))
+    return h_kernels.CSR.stack(mats, n)
+
+
+def check_h_kernels(device, imad_rate):
+    """Phase 3: K0, K4, K5 against their plain versions, limb for limb. At
+    check sizes: K0 over 8,191 and 3 x 8,191 elements (a ragged last
+    block); K4 every transform form at 2^8 and 2^10 with a 2^4 tile (two
+    and three launches a direction) and at 2^12 with the largest tile (one
+    group); K5 over 1,000 rows (empty rows, long rows, a ragged block). At
+    the paths' shapes, n = 2^16, 2^17, 2^18 with k = 1 and 4: to_mont of
+    [16, k, n], the quotient over [16, 3, k, n], the coset transform over
+    [16, 3k, n] and the way back (from_mont) over [16, k, n], K5 over a
+    random CSR of 3 x n rows (0.43 terms a row on average, 8 rows of 300;
+    the circuits' own matrices, 0.9-7.3 terms a row, are phase 5's). Each
+    line: the kernel's ms (CUDA events), the plain version's, the bound."""
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.ops import h_kernels
+    from zksc_tpu_torch.ops.ntt import NTTContext
+    rng = np.random.default_rng(H_SEED)
+    gen = torch.Generator(device=device).manual_seed(H_SEED)
+    err = 0
+
+    def check(label, key, args, run=None, plain=None):
+        nonlocal err
+        k_run, k_plain = h_fns(key, args)
+        ms, plain_ms, e = compare(label, run or k_run, plain or k_plain,
+                                  lambda r: [r])
+        bound, by, prods = h_bound_ms(key, args, imad_rate)
+        log(f"phase 3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound:.4f} ms ({by}, {prods} Fr products), "
+            f"max_abs_err={e}")
+        err = max(err, e)
+
+    t0 = time.time()
+    x = fr_random((8191,), device, gen)
+    check("K0 to_mont N=8191", ("fr_elementwise", "to_mont"), (x,))
+    abc = fr_random((3, 8191), device, gen)
+    check("K0 quotient N=8191", ("fr_elementwise", "quotient"), (abc, 12345))
+    for log_n, log_tile in ((8, 4), (10, 4), (12, 12)):
+        ctx = NTTContext(Fr, 1 << log_n, device=device)
+        tw_inv, tw_fwd, words = ctx._kernel_tables()
+        x = fr_random((3, 1 << log_n), device, gen)
+        groups = len(h_kernels.ntt_plan(log_n, log_tile))
+        for (dif, dit, scale), form in NTT_FORMS.items():
+            run = lambda: h_kernels.ntt(x, tw_inv, tw_fwd, dif, dit,
+                                        None if scale is None else words[scale],
+                                        log_tile)
+            check(f"K4 {form} [16, 3, 2^{log_n}] tile 2^{log_tile} "
+                  f"({groups} groups)", ("ntt_group", form),
+                  (ctx, x, dif, dit, scale), run=run)
+    csr = random_csr(1000, 300, 1.3, 3, rng, device)
+    z = fr_random((2, 300), device, gen)
+    check("K5 n=1000 k=2 (empty and 300-term rows)",
+          ("sparse_matvec", "A, B, C stacked"), (z, csr))
+    for log_n in (16, 17, 18):
+        n = 1 << log_n
+        ctx = NTTContext(Fr, n, device=device)
+        csr = random_csr(n, n, 1.3 / 3, 8, rng, device)
+        for k in (1, 4):
+            z = fr_random((k, n), device, gen)
+            check(f"K0 to_mont [16, {k}, 2^{log_n}]",
+                  ("fr_elementwise", "to_mont"), (z,))
+            check(f"K5 k={k} n=2^{log_n} nnz={csr.cols.numel()}",
+                  ("sparse_matvec", "A, B, C stacked"), (z, csr))
+            abc = fr_random((3 * k, n), device, gen)
+            check(f"K4 coset_evals_from_evals [16, {3 * k}, 2^{log_n}]",
+                  ("ntt_group", "coset_evals_from_evals"),
+                  (ctx, abc, True, True, "ninv_shift"))
+            check(f"K0 quotient [16, 3, {k}, 2^{log_n}]",
+                  ("fr_elementwise", "quotient"),
+                  (abc.view(16, 3, k, n), ctx.z_coset_int))
+            h = abc[:, :k].contiguous()
+            check(f"K4 coeffs_br_from_coset_evals from_mont [16, {k}, "
+                  f"2^{log_n}]",
+                  ("ntt_group", "coeffs_br_from_coset_evals from_mont"),
+                  (ctx, h, True, False, "ninv_shift_inv_plain"))
+        del ctx, csr
+    log(f"phase 3 H kernels checked ({time.time() - t0:.2f} s, "
+        f"max_abs_err {err})")
+    return err
+
+
+def time_h_kernels(calls, imad_rate, path: str):
+    """Phase 5: each H kernel variant's largest call of one path replayed
+    through the kernel and its plain version (equal limb for limb), timed
+    (card-only and host-paced CUDA events) beside its bound."""
+    rows = []
+    for key in sorted(calls, key=str):
+        args, _ = calls[key]
+        run, plain = h_fns(key, args)
+        shape = h_shape(key, args)
+        ms, plain_ms, err = compare(f"{key[0]} {key[1]} {shape}", run, plain,
+                                    lambda r: [r])
+        paced = cuda_ms(run, reps=3, paced=True)
+        bound, by, prods = h_bound_ms(key, args, imad_rate)
+        log(f"[{path}] {key[0]} {key[1]} {shape}: kernel {ms:.4f} ms "
+            f"({paced:.4f} ms paced by the host), plain {plain_ms:.2f} ms, "
+            f"bound {bound:.4f} ms ({by}, {prods} Fr products), "
+            f"max_abs_err={err}")
+        rows.append({"name": key[0], "path": path, "variant": key[1],
+                     "shape": shape, "ms": ms, "paced_ms": paced,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "ops_needed": prods, "max_abs_err": err})
+    return rows
+
+
+def h_proof_totals(log_calls, imad_rate, path: str, counts, reset_counts):
+    """Phase 5: every H kernel call of one warm proof (or batch), in order,
+    replayed through the kernel: per kernel the launches, the summed ms and
+    the summed bound."""
+    tot = {}
+    for key, args in log_calls:
+        run, _ = h_fns(key, args)
+        reset_counts()
+        run()
+        n_launch = counts()[key[0]]
+        ms = cuda_ms(run, reps=2)
+        paced = cuda_ms(run, reps=2, paced=True)
+        bound, _, prods = h_bound_ms(key, args, imad_rate)
+        t = tot.setdefault(key[0], {"launches": 0, "ms": 0.0, "paced_ms": 0.0,
+                                    "bound_ms": 0.0, "ops_needed": 0})
+        t["launches"] += n_launch
+        t["ms"] += ms
+        t["paced_ms"] += paced
+        t["bound_ms"] += bound
+        t["ops_needed"] += prods
+    for name, t in sorted(tot.items()):
+        log(f"[{path} warm proof] {name}: {t['launches']} launches, kernel "
+            f"{t['ms']:.4f} ms in all ({t['paced_ms']:.4f} ms paced by the "
+            f"host), bound {t['bound_ms']:.4f} ms "
+            f"({100 * t['bound_ms'] / max(t['ms'], 1e-9):.1f}% of the time), "
+            f"{t['ops_needed']} Fr products")
+    return tot
+
+
+def h_kernel_entries(rows, per_proof, launches, batch_launches, err):
+    """The K0 / K4 / K5 entries of the kernels line: each kernel's largest
+    call of phase 4's warm chacha20 proof, with its launches there, and
+    the per-proof totals of every recorded path."""
+    entries = []
+    for name in H_NAMES:
+        mine = [r for r in rows if r["name"] == name]
+        main = max((r for r in mine if r["path"] == "chacha20"),
+                   key=lambda r: r["bound_ms"])
+        entries.append({
+            "name": name, "route": "cuda", "source": H_SRC,
+            "replaces": H_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "path": "chacha20",
+            "shape": f"{main['variant']} {main['shape']}",
+            "launches_batch4": {a: n[name] for a, n in batch_launches.items()},
+            "per_proof": {p: t[name] for p, t in per_proof.items()
+                          if name in t},
+            "variants": mine})
+    return entries
 
 
 def time_stark_kernels(log_calls, imad_rate, path: str, key_size=None,
@@ -3553,7 +3898,7 @@ def profile_proof(prove):
     log(f"profile: proof wall {wall_ms:.2f} ms (profiler on), device busy "
         f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} kernel "
         f"names, {sum(e.count for e in kernels)} launches")
-    log(f"profile: K1+K2 {sum(dev(e) for e in ours):.3f} ms in "
+    log(f"profile: the port's kernels {sum(dev(e) for e in ours):.3f} ms in "
         f"{sum(e.count for e in ours)} launches")
     for e in sorted(kernels, key=dev, reverse=True)[:12] + ours:
         log(f"profile: {dev(e):9.3f} ms {e.count:6d} x {e.key[:100]}")
@@ -3587,7 +3932,8 @@ def main(argv) -> int:
 
     # ---- 2. build: every nvcc started together
     from zksc_tpu_torch.native import tape_lib
-    from zksc_tpu_torch.ops import cuda_build, ec_kernels, msm_kernels, stark_kernels
+    from zksc_tpu_torch.ops import cuda_build, ec_kernels, h_kernels, msm_kernels
+    from zksc_tpu_torch.ops import stark_kernels
     t = time.time()
     nvcc = cuda_build.build(verbose=True)
     log(f"phase 2 build: nvcc " + ", ".join(
@@ -3606,10 +3952,11 @@ def main(argv) -> int:
         ec_kernels.reset_launch_counts()
         msm_kernels.reset_launch_counts()
         stark_kernels.reset_launch_counts()
+        h_kernels.reset_launch_counts()
 
     def counts():
         return {**ec_kernels.LAUNCHES, **msm_kernels.LAUNCHES,
-                **stark_kernels.LAUNCHES}
+                **stark_kernels.LAUNCHES, **h_kernels.LAUNCHES}
 
     from zksc_tpu_torch import api
     if "--toprf" in argv:
@@ -3621,6 +3968,8 @@ def main(argv) -> int:
         drive_toprf(api, alg, reset_counts, counts, rec)
         time_kernels(rec.calls, imad_rate, alg)
         proof_totals(rec.log, imad_rate, alg, counts, reset_counts)
+        time_h_kernels(rec.h_calls, imad_rate, alg)
+        h_proof_totals(rec.h_log, imad_rate, alg, counts, reset_counts)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3633,6 +3982,7 @@ def main(argv) -> int:
     err = max(err, k3_err, check_wide_windows(g1a, g2h))
     check_stable_sort()
     err = max(err, check_stark_kernels(device, imad_rate))
+    err = max(err, check_h_kernels(device, imad_rate))
     sweep_merkle_crossover(device)
     log(f"phase 3 kernel checks passed (max_abs_err {err})")
     del g1a, g1b, g2h
@@ -3665,7 +4015,7 @@ def main(argv) -> int:
     launches = counts()
     stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
     log(f"phase 4 proof 2: {prove_s:.3f} s ({stages}); launches {launches}")
-    for k in ("chunk_scan", "jac_add_n"):
+    for k in ("chunk_scan", "jac_add_n") + H_NAMES:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     peak = torch.cuda.max_memory_allocated()
@@ -3754,6 +4104,15 @@ def main(argv) -> int:
         per_proof[path] = proof_totals(rec.log, imad_rate, path, counts,
                                        reset_counts)
         rec.log = []
+    h_rows, h_per_proof = [], {}
+    for path, rec in (("chacha20", rec_chacha), ("aes-128-ctr", rec_aes),
+                      ("chacha20-toprf", rec_toprf),
+                      ("chacha20 k=4", rec_batch["chacha20"]),
+                      ("aes-128-ctr k=4", rec_batch["aes-128-ctr"])):
+        h_rows += time_h_kernels(rec.h_calls, imad_rate, path)
+        h_per_proof[path] = h_proof_totals(rec.h_log, imad_rate, path,
+                                           counts, reset_counts)
+        rec.h_calls, rec.h_log = {}, []
     t = time.time()
     stark_rows, stark_per_proof = run_stark_phase5(stark_recs, imad_rate)
     log(f"phase 5 stark replays: {time.time() - t:.2f} s")
@@ -3761,7 +4120,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_proof(lambda: api.generate_proof("chacha20", key, ct, iv,
                                                  device="cuda", rng=rng))
-    err = max([err] + [r["max_abs_err"] for r in rows + stark_rows])
+    err = max([err] + [r["max_abs_err"] for r in rows + stark_rows + h_rows])
 
     def head(name, replaces, source, path, variant, n_launch, plain_ms=None):
         r = next(r for r in rows if r["name"] == name and r["path"] == path
@@ -3798,7 +4157,8 @@ def main(argv) -> int:
              plain_shape="G1 unreduced shared bits N=4096 bits=32",
              launches_ladder_branch=ladder_launches["ladder"],
              launches_mesh4_ladder_branch=mesh_launches["ladder"]["ladder"]),
-    ] + stark_kernel_entries(stark_rows, stark_per_proof, stark_launches, err)}),
+    ] + stark_kernel_entries(stark_rows, stark_per_proof, stark_launches, err)
+      + h_kernel_entries(h_rows, h_per_proof, launches, batch_launches, err)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,24 +4,26 @@ Each inline-asm block of the header's field core (mac4, shift_merge, sub8,
 add8) is read from the source and executed by a small interpreter of the
 PTX integer instructions it uses, with the carry flag as the PTX ISA
 defines it (set by .cc, read by madc / addc / subc, a borrow for
-subtraction; a mad/madc without .cc must not carry out). The loops of fp_mul / fp_add / fp_sub around the blocks are
+subtraction; a mad/madc without .cc must not carry out). The loops of mont_mul / mod_add / mod_sub around the blocks are
 mirrored here line for line; the results are held to Python integers on
 edge and random operands, and to the port's own Montgomery product
-(fields/limb.py), limb for limb. This is the arithmetic the K1/K2/K3
-kernels run on the card, checked where no CUDA compiler exists."""
+(fields/limb.py), limb for limb, for both moduli the header's element
+types name: p (Fp) and r (Fr). This is the arithmetic the K1/K2/K3 and
+K0/K4/K5 kernels run on the card, checked where no CUDA compiler exists."""
 import os
 import random
 import re
 
 import pytest
 
-from zksc_tpu_torch.fields.limb import BN254_P as P, Fp
+from zksc_tpu_torch.fields.limb import BN254_P as P, BN254_R, Fp, Fr
 
 HEADER = os.path.join(os.path.dirname(__file__), "..", "..", "zksc_tpu_torch",
                       "csrc", "bn254.cuh")
 M32 = (1 << 32) - 1
 R = 1 << 256
-NP0 = 0xE4866389
+# -m^-1 mod 2^32 of each modulus, as the header's Field<E>::np0
+NP0 = {P: 0xE4866389, BN254_R: 0xEFFFFFFF}
 
 
 def _blocks():
@@ -92,7 +94,6 @@ def _int(w):
     return sum(v << (32 * i) for i, v in enumerate(w))
 
 
-PW = _words(P)
 
 
 def _arr(name, vals):
@@ -118,67 +119,100 @@ def _add8(a, b):
     return _get(_run("add8", {**_arr("a", a), **_arr("b", b)}), "d", 8)
 
 
-def _reduce_once(t):
-    d, bw = _sub8(t, PW)
+def _reduce_once(t, m):
+    d, bw = _sub8(t, _words(m))
     return t if bw else d
 
 
-def fp_mul(a, b):
-    """bn254.cuh:fp_mul, its loop mirrored."""
+def mont_mul(a, b, m=P):
+    """bn254.cuh:mont_mul over the modulus m, its loop mirrored."""
+    mw = _words(m)
     e = [0] * 9
     for i in range(8):
         o = [0] * 9
         e = _mac4(e, a[0::2], b[i])
         o = _mac4(o, a[1::2], b[i])
-        m = (e[0] * NP0) & M32
-        e = _mac4(e, PW[0::2], m)
+        q = (e[0] * NP0[m]) & M32
+        e = _mac4(e, mw[0::2], q)
         assert e[0] == 0
-        o = _mac4(o, PW[1::2], m)
+        o = _mac4(o, mw[1::2], q)
         env = _run("shift_merge", {**_arr("e", e), **_arr("o", o)})
         e = _get(env, "e", 9)
-        assert e[8] == 0 and _int(e[:8]) < 2 * P
-    return _reduce_once(e[:8])
+        assert e[8] == 0 and _int(e[:8]) < 2 * m
+    return _reduce_once(e[:8], m)
 
 
-def fp_add(a, b):
-    return _reduce_once(_add8(a, b))
+def mod_add(a, b, m=P):
+    return _reduce_once(_add8(a, b), m)
 
 
-def fp_sub(a, b):
+def mod_sub(a, b, m=P):
     d, bw = _sub8(a, b)
-    return _add8(d, [w & bw for w in PW])
+    return _add8(d, [w & bw for w in _words(m)])
 
 
-def _operands(n, seed):
+def _operands(n, seed, m=P):
     rnd = random.Random(seed)
-    edge = [0, 1, 2, P - 1, P - 2, R % P, R * R % P, P // 2, 1 << 253]
-    vals = edge + [rnd.randrange(P) for _ in range(n)]
-    return [(x, y) for x in vals for y in (edge[3], edge[5], rnd.randrange(P))]
+    edge = [0, 1, 2, m - 1, m - 2, R % m, R * R % m, m // 2, 1 << 253]
+    vals = edge + [rnd.randrange(m) for _ in range(n)]
+    return [(x, y) for x in vals for y in (edge[3], edge[5], rnd.randrange(m))]
+
+
+def test_np0_and_moduli_match_header():
+    """The header's moduli, Montgomery ones and -m^-1 mod 2^32 are those of
+    p and r."""
+    src = open(HEADER).read()
+    hexes = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", src)]
+    for m in (P, BN254_R):
+        for v in (m, R % m):
+            w = _words(v)
+            assert any(hexes[i:i + 8] == w for i in range(len(hexes) - 7)), v
+        assert (m * NP0[m] + 1) % (1 << 32) == 0
+        assert f"0x{NP0[m]:08x}u" in src
 
 
 def test_blocks_found():
     assert {"mac4", "shift_merge", "sub8", "add8"} <= set(BLOCKS)
 
 
-@pytest.mark.parametrize("op", ["mul", "add", "sub"])
-def test_field_core_vs_ints(op):
-    rinv = pow(R, -1, P)
-    for a, b in _operands(60, {"mul": 1, "add": 2, "sub": 3}[op]):
+def _check_core(op, m):
+    rinv = pow(R, -1, m)
+    for a, b in _operands(60, {"mul": 1, "add": 2, "sub": 3}[op], m):
         wa, wb = _words(a), _words(b)
         if op == "mul":
-            assert _int(fp_mul(wa, wb)) == a * b * rinv % P, (a, b)
+            assert _int(mont_mul(wa, wb, m)) == a * b * rinv % m, (a, b)
         elif op == "add":
-            assert _int(fp_add(wa, wb)) == (a + b) % P, (a, b)
+            assert _int(mod_add(wa, wb, m)) == (a + b) % m, (a, b)
         else:
-            assert _int(fp_sub(wa, wb)) == (a - b) % P, (a, b)
+            assert _int(mod_sub(wa, wb, m)) == (a - b) % m, (a, b)
+
+
+def _check_port_limbs(F):
+    pairs = _operands(12, 4, F.p)
+    xs = F.to_device([a for a, _ in pairs], mont=False)
+    ys = F.to_device([b for _, b in pairs], mont=False)
+    want = F.from_device(F.mont_mul(xs, ys), mont=False)
+    got = [_int(mont_mul(_words(a), _words(b), F.p)) for a, b in pairs]
+    assert got == want
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_field_core_vs_ints(op):
+    _check_core(op, P)
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_fr_core_vs_ints(op):
+    """The same chains over r, as the H kernels run them."""
+    _check_core(op, BN254_R)
 
 
 def test_fp_mul_vs_port_limbs():
     """The emulated product equals fields/limb.py's mont_mul limb for limb
     (16-bit limbs are the kernels' tensor boundary)."""
-    pairs = _operands(12, 4)
-    xs = Fp.to_device([a for a, _ in pairs], mont=False)
-    ys = Fp.to_device([b for _, b in pairs], mont=False)
-    want = Fp.from_device(Fp.mont_mul(xs, ys), mont=False)
-    got = [_int(fp_mul(_words(a), _words(b))) for a, b in pairs]
-    assert got == want
+    _check_port_limbs(Fp)
+
+
+def test_fr_mul_vs_port_limbs():
+    """Over r: equal to Fr.mont_mul limb for limb."""
+    _check_port_limbs(Fr)

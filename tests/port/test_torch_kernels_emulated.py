@@ -1,5 +1,5 @@
-"""The CUDA sources of K1, K2, K3 and K7a-d (zksc_tpu_torch/csrc/), run on the
-CPU.
+"""The CUDA sources of K1, K2, K3, K7a-d and the Groth16 H kernels K0, K4,
+K5 (zksc_tpu_torch/csrc/), run on the CPU.
 
 No CUDA compiler exists here, so the sources are turned into plain C++ and
 built with g++: each PTX asm block becomes C++ with an explicit carry flag
@@ -19,7 +19,11 @@ one-launch Merkle tree, whose last block takes a ticket by an atomic add
 that the shim runs under a mutex; K7b's four circle-FFT layer forms; K7c's
 sliced composition over the chacha20 AIR's index groups at each launch
 shape, and its summing launch on 2-D blocks; K7d's over the AES AIR with
-its sigma gather) are held to their plain versions and K7a to hashlib. This checks the kernels' indexing, layouts,
+its sigma gather) are held to their plain versions and K7a to hashlib;
+K0 (to_mont and the quotient over a ragged last block), K4 (every
+transform's stage groups split with a small tile at n = 2^8-2^10, so a
+transform takes two or three launches) and K5 (empty and long rows, a
+ragged last block) to theirs. This checks the kernels' indexing, layouts,
 branches and the lane-pair protocol; the card's own compiler and timing are
 chip_smoke.py's."""
 import ctypes
@@ -38,8 +42,10 @@ CSRC = os.path.join(ROOT, "zksc_tpu_torch", "csrc")
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from zksc_tpu_torch.fields.limb import Fr  # noqa: E402
 from zksc_tpu_torch.ops import ec, ec_kernels, msm, msm_kernels  # noqa: E402
-from zksc_tpu_torch.ops import stark_kernels  # noqa: E402
+from zksc_tpu_torch.ops import h_kernels, stark_kernels  # noqa: E402
+from zksc_tpu_torch.ops.ntt import NTTContext  # noqa: E402
 from zksc_tpu_torch.stark import aes_air, blake2s, chacha_air, circle  # noqa: E402
 from zksc_tpu_torch.stark import aes_prover  # noqa: E402
 from zksc_tpu_torch.stark import prover as stark_prover  # noqa: E402
@@ -231,7 +237,7 @@ def _translate(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """(ec, msm, stark libraries) built from csrc/ with g++."""
+    """(ec, msm, stark, h libraries) built from csrc/ with g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the emulated kernels cannot be built")
@@ -240,7 +246,7 @@ def emulated(tmp_path_factory):
     for name in os.listdir(CSRC):
         (d / name).write_text(_translate(open(os.path.join(CSRC, name)).read()))
     libs = []
-    for name in ("ec_kernels", "msm_kernels", "stark_kernels"):
+    for name in ("ec_kernels", "msm_kernels", "stark_kernels", "h_kernels"):
         so = d / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
                         str(d / f"{name}.cu"), "-o", str(so)], check=True,
@@ -249,6 +255,7 @@ def emulated(tmp_path_factory):
     ec_kernels._declare(libs[0])
     msm_kernels._declare(libs[1])
     stark_kernels._declare(libs[2])
+    h_kernels._declare(libs[3])
     return libs
 
 
@@ -776,3 +783,97 @@ def test_k7d_slice_table():
     lk0 = max(bounds[s], sum(n[:4])) - sum(n[:4])    # its first lookup
     F0 = idx[off[4] + 16 * n[4] + lk0]
     assert srows[h[0] + rb + 16 * cnt] == F0
+
+
+@pytest.fixture
+def h_emu(emulated, monkeypatch):
+    """h_kernels' launch paths, pointed at the emulated library."""
+    monkeypatch.setattr(h_kernels, "_lib", lambda: emulated[3])
+    monkeypatch.setattr(h_kernels, "_stream", lambda t: None)
+    monkeypatch.setattr(h_kernels, "_require_cuda", lambda t, what: None)
+    return h_kernels
+
+
+def _fr_limbs(rng, shape, mont=True):
+    """Canonical Fr elements [16, *shape] from a numpy generator, with 0, 1
+    and r - 1 among the first."""
+    count = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(32), "little") % Fr.p
+            for _ in range(count)]
+    vals[:3] = [0, 1, Fr.p - 1][:count]
+    return Fr.to_device(vals, mont=mont).reshape(Fr.L, *shape)
+
+
+def test_k0_emulated(h_emu):
+    """K0 at N = 231 elements (a ragged last block of 128 threads): to_mont
+    equal to Fr.to_mont, the quotient (a b - c) / Z over [16, 3, 2, 70]
+    equal to quotient_plain; one launch each."""
+    rng = np.random.default_rng(17)
+    x = _fr_limbs(rng, (3, 77), mont=False)
+    before = h_emu.LAUNCHES["fr_elementwise"]
+    assert torch.equal(h_emu._launch_to_mont(x), Fr.to_mont(x))
+    abc = _fr_limbs(rng, (3, 2, 70))
+    zinv = int.from_bytes(rng.bytes(32), "little") % Fr.p
+    assert torch.equal(h_emu._launch_quotient(abc, zinv),
+                       h_emu.quotient_plain(abc, zinv))
+    assert h_emu.LAUNCHES["fr_elementwise"] == before + 2
+
+
+def test_k5_emulated(h_emu):
+    """K5 over three stacked matrices of 200 rows (empty rows, a row of 300
+    terms, repeated columns) at k = 2 proofs: 1,200 (row, proof) threads,
+    a ragged last block; equal to sparse_matvec_plain, one launch."""
+    rng = np.random.default_rng(5)
+    n, m_pad, k = 200, 40, 2
+    mats = []
+    for m in range(3):
+        counts = rng.integers(0, 4, n)
+        counts[rng.integers(0, n, 20)] = 0
+        counts[7 + m] = 300
+        rows = np.repeat(np.arange(n), counts)
+        cols = rng.integers(0, m_pad, rows.size)
+        mats.append((torch.from_numpy(rows), torch.from_numpy(cols),
+                     _fr_limbs(rng, (rows.size,))))
+    csr = h_kernels.CSR.stack(mats, n)
+    z = _fr_limbs(rng, (k, m_pad))
+    before = h_emu.LAUNCHES["sparse_matvec"]
+    got = h_emu._launch_sparse_matvec(z, csr)
+    assert got.shape == (Fr.L, 3, k, n)
+    assert torch.equal(got, h_kernels.sparse_matvec_plain(z, csr))
+    assert h_emu.LAUNCHES["sparse_matvec"] == before + 1
+
+
+# (dif, dit, scale) of each NTTContext transform
+NTT_FORMS = {"dif_inverse": (True, False, "ninv"),
+             "dit_forward": (False, True, None),
+             "coset_evals_from_coeffs_br": (False, True, "shift"),
+             "coeffs_br_from_coset_evals": (True, False, "ninv_shift_inv"),
+             "coeffs_br_from_coset_evals from_mont": (
+                 True, False, "ninv_shift_inv_plain"),
+             "coset_evals_from_evals": (True, True, "ninv_shift")}
+
+
+@pytest.mark.parametrize("log_n", [8, 9, 10])
+def test_k4_emulated(h_emu, log_n):
+    """K4 with a tile of 2^4 elements: 2^8 in two stage groups, 2^9 and
+    2^10 in three (the top one of 1 and 2 stages, 8 and 4 consecutive low
+    indices a tile); every transform's form (DIF, DIT, both in one chunk
+    launch; the table by position, a constant, none) over two rows equal
+    to NTTContext's plain version, in the number of launches ntt_plan
+    says; at 2^10 also the default tile (one launch a direction)."""
+    ctx = NTTContext(Fr, 1 << log_n, device="cpu")
+    tw_inv, tw_fwd, words = ctx._kernel_tables()
+    x = _fr_limbs(np.random.default_rng(log_n), (2, 1 << log_n))
+    groups = len(h_kernels.ntt_plan(log_n, 4))
+    assert groups == (2 if log_n == 8 else 3)
+    for name, (dif, dit, scale) in NTT_FORMS.items():
+        before = h_emu.LAUNCHES["ntt_group"]
+        got = h_emu.ntt(x, tw_inv, tw_fwd, dif, dit,
+                        None if scale is None else words[scale], log_tile=4)
+        assert h_emu.LAUNCHES["ntt_group"] - before == \
+            (2 * groups - 1 if dif and dit else groups), name
+        assert torch.equal(got, ctx._transform_plain(x, dif, dit, scale)), name
+    if log_n == 10:
+        got = h_emu.ntt(x, tw_inv, tw_fwd, True, True, words["ninv_shift"])
+        assert torch.equal(got, ctx._transform_plain(x, True, True,
+                                                     "ninv_shift"))

@@ -1,17 +1,21 @@
-// BN254 base-field arithmetic and Jacobian point formulas for the
-// hand-written Hopper kernels (K1, K2 in ec_kernels.cu; K3 in
-// msm_kernels.cu).
+// BN254 field arithmetic and Jacobian point formulas for the hand-written
+// Hopper kernels (K1, K2 in ec_kernels.cu; K3 in msm_kernels.cu; the
+// Groth16 H kernels K0, K4, K5 in h_kernels.cu).
 //
-// Fp elements live in registers as 8 x 32-bit little-endian words in
+// Field elements live in registers as 8 x 32-bit little-endian words in
 // Montgomery form with R = 2^256 -- the same R as the 16 x 16-bit limbs at
 // the tensor boundary (fields/limb.py), so packing two limbs per word gives
 // the same Montgomery residue. Every operation returns the canonical
-// representative in [0, p), hence results unpack to exactly the limbs the
-// plain PyTorch path (and the JAX reference) produce.
+// representative in [0, m), hence results unpack to exactly the limbs the
+// plain PyTorch path (and the JAX reference) produce. The element type
+// names its modulus: Fp (the base field p: point coordinates) or Fr (the
+// scalar field r: the Groth16 quotient); the arithmetic is one template
+// over both (Field<E> holds the modulus' index and -m^-1 mod 2^32), so K1-K3
+// compile to the code they had when the product was fixed to p.
 //
 // What bounds the point kernels: 32-bit integer multiply-adds. The design
 // of this file:
-//  - fp_mul is CIOS over 32-bit words written as PTX carry chains
+//  - mont_mul is CIOS over 32-bit words written as PTX carry chains
 //    (mad.lo.cc / madc.hi.cc / addc) in the even/odd split-accumulator
 //    form: each chain adds four whole products whose low and high words
 //    sit side by side, which ptxas fuses into wide multiply-adds with carry
@@ -44,52 +48,78 @@
 
 namespace zksc {
 
-// p, little-endian 32-bit words
-__device__ __constant__ uint32_t kP[8] = {
-    0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
-    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
-// R mod p: 1 in Montgomery form
-__device__ __constant__ uint32_t kOne[8] = {
-    0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
-    0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
-// -p^-1 mod 2^32
-constexpr uint32_t kNP0 = 0xe4866389u;
+// the moduli p (Fp) and r (Fr), little-endian 32-bit words
+__device__ __constant__ uint32_t kModulus[2][8] = {
+    {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
+    {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
+     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u}};
+// R mod m: 1 in Montgomery form
+__device__ __constant__ uint32_t kMontOne[2][8] = {
+    {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+     0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
+    {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
+     0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}};
 
 struct Fp {
   uint32_t w[8];
 };
 
-__device__ __forceinline__ Fp fp_zero() {
-  Fp r;
+struct Fr {
+  uint32_t w[8];
+};
+
+// the modulus of an element type: its row of kModulus / kMontOne and
+// -m^-1 mod 2^32
+template <class E>
+struct Field;
+template <>
+struct Field<Fp> {
+  static constexpr int id = 0;
+  static constexpr uint32_t np0 = 0xe4866389u;
+};
+template <>
+struct Field<Fr> {
+  static constexpr int id = 1;
+  static constexpr uint32_t np0 = 0xefffffffu;
+};
+
+template <class E = Fp>
+__device__ __forceinline__ E elem_zero() {
+  E r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.w[i] = 0u;
   return r;
 }
 
-__device__ __forceinline__ Fp fp_one() {
-  Fp r;
+template <class E = Fp>
+__device__ __forceinline__ E elem_one() {
+  E r;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) r.w[i] = kOne[i];
+  for (int i = 0; i < 8; ++i) r.w[i] = kMontOne[Field<E>::id][i];
   return r;
 }
 
-__device__ __forceinline__ bool fp_is_zero(const Fp& a) {
+template <class E>
+__device__ __forceinline__ bool elem_is_zero(const E& a) {
   uint32_t acc = 0u;
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc |= a.w[i];
   return acc == 0u;
 }
 
-__device__ __forceinline__ bool fp_is_one(const Fp& a) {
+template <class E>
+__device__ __forceinline__ bool elem_is_one(const E& a) {
   uint32_t acc = 0u;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc |= a.w[i] ^ kOne[i];
+  for (int i = 0; i < 8; ++i) acc |= a.w[i] ^ kMontOne[Field<E>::id][i];
   return acc == 0u;
 }
 
-__device__ __forceinline__ void load_p(uint32_t (&p)[8]) {
+template <class E>
+__device__ __forceinline__ void load_modulus(uint32_t (&p)[8]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) p[i] = kP[i];
+  for (int i = 0; i < 8; ++i) p[i] = kModulus[Field<E>::id][i];
 }
 
 // ---- carry chains (one asm block each)
@@ -173,45 +203,49 @@ __device__ __forceinline__ void add8(uint32_t (&d)[8], const uint32_t (&a)[8],
         "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
 }
 
-// ---- Fp
+// ---- Fp and Fr (m: the element type's modulus, p or r; both < 2^254)
 
-// t in [0, 2p) -> canonical t mod p.
-__device__ __forceinline__ Fp fp_reduce_once(const uint32_t (&t)[8]) {
+// t in [0, 2m) -> canonical t mod m.
+template <class E>
+__device__ __forceinline__ E reduce_once(const uint32_t (&t)[8]) {
   uint32_t p[8];
-  load_p(p);
-  Fp d;
+  load_modulus<E>(p);
+  E d;
   const uint32_t bw = sub8(d.w, t, p);
 #pragma unroll
   for (int i = 0; i < 8; ++i) d.w[i] = bw ? t[i] : d.w[i];
   return d;
 }
 
-__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b) {
+template <class E>
+__device__ __forceinline__ E mod_add(const E& a, const E& b) {
   uint32_t s[8];
-  add8(s, a.w, b.w);                     // < 2p < 2^255: no carry out
-  return fp_reduce_once(s);
+  add8(s, a.w, b.w);                     // < 2m < 2^255: no carry out
+  return reduce_once<E>(s);
 }
 
-__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
-  Fp d;
+template <class E>
+__device__ __forceinline__ E mod_sub(const E& a, const E& b) {
+  E d;
   const uint32_t bw = sub8(d.w, a.w, b.w);
   uint32_t q[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) q[i] = kP[i] & bw;   // add p back on underflow
-  Fp r;
+  for (int i = 0; i < 8; ++i) q[i] = kModulus[Field<E>::id][i] & bw;   // add m back on underflow
+  E r;
   add8(r.w, d.w, q);
   return r;
 }
 
-// Montgomery product a * b * 2^-256 mod p: CIOS over 32-bit words with
+// Montgomery product a * b * 2^-256 mod m: CIOS over 32-bit words with
 // split accumulators. Per word b_i the running sum T = E + 2^32 O takes
-// a b_i and m p (m = T * -p^-1 mod 2^32), the even-indexed words of a and
-// p into E and the odd-indexed ones into O, four chains of four products;
-// then T / 2^32 = (E >> 32) + O becomes the next E. T stays below 2p
+// a b_i and q m (q = T * -m^-1 mod 2^32), the even-indexed words of a and
+// m into E and the odd-indexed ones into O, four chains of four products;
+// then T / 2^32 = (E >> 32) + O becomes the next E. T stays below 2m
 // between words, so nine words never overflow.
-__device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b) {
+template <class E>
+__device__ __forceinline__ E mont_mul(const E& a, const E& b) {
   uint32_t p[8];
-  load_p(p);
+  load_modulus<E>(p);
   uint32_t e[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) e[i] = 0u;
@@ -222,7 +256,7 @@ __device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b) {
     for (int k = 0; k < 9; ++k) o[k] = 0u;
     mac4(e, a.w[0], a.w[2], a.w[4], a.w[6], b.w[i]);
     mac4(o, a.w[1], a.w[3], a.w[5], a.w[7], b.w[i]);
-    const uint32_t m = e[0] * kNP0;
+    const uint32_t m = e[0] * Field<E>::np0;
     mac4(e, p[0], p[2], p[4], p[6], m);          // e[0] becomes 0
     mac4(o, p[1], p[3], p[5], p[7], m);
     shift_merge(e, o);
@@ -230,7 +264,7 @@ __device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b) {
   uint32_t r[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) r[i] = e[i];
-  return fp_reduce_once(r);
+  return reduce_once<E>(r);
 }
 
 // ---- Fp2h: one component of an Fp2 = Fp[i]/(i^2 + 1) per thread of an
@@ -259,31 +293,31 @@ __device__ __forceinline__ bool pair_all(bool b) {
 
 // ---- the generic field interface the point formulas are written against
 
-__device__ __forceinline__ Fp f_add(const Fp& a, const Fp& b) { return fp_add(a, b); }
-__device__ __forceinline__ Fp f_sub(const Fp& a, const Fp& b) { return fp_sub(a, b); }
-__device__ __forceinline__ Fp f_mul(const Fp& a, const Fp& b) { return fp_mul(a, b); }
-__device__ __forceinline__ bool f_is_zero(const Fp& a) { return fp_is_zero(a); }
-__device__ __forceinline__ bool f_is_one(const Fp& a) { return fp_is_one(a); }
-__device__ __forceinline__ void f_set_one(Fp& a) { a = fp_one(); }
-__device__ __forceinline__ void f_set_zero(Fp& a) { a = fp_zero(); }
+__device__ __forceinline__ Fp f_add(const Fp& a, const Fp& b) { return mod_add(a, b); }
+__device__ __forceinline__ Fp f_sub(const Fp& a, const Fp& b) { return mod_sub(a, b); }
+__device__ __forceinline__ Fp f_mul(const Fp& a, const Fp& b) { return mont_mul(a, b); }
+__device__ __forceinline__ bool f_is_zero(const Fp& a) { return elem_is_zero(a); }
+__device__ __forceinline__ bool f_is_one(const Fp& a) { return elem_is_one(a); }
+__device__ __forceinline__ void f_set_one(Fp& a) { a = elem_one(); }
+__device__ __forceinline__ void f_set_zero(Fp& a) { a = elem_zero(); }
 
-__device__ __forceinline__ Fp2h f_add(const Fp2h& a, const Fp2h& b) { return {fp_add(a.v, b.v)}; }
-__device__ __forceinline__ Fp2h f_sub(const Fp2h& a, const Fp2h& b) { return {fp_sub(a.v, b.v)}; }
+__device__ __forceinline__ Fp2h f_add(const Fp2h& a, const Fp2h& b) { return {mod_add(a.v, b.v)}; }
+__device__ __forceinline__ Fp2h f_sub(const Fp2h& a, const Fp2h& b) { return {mod_sub(a.v, b.v)}; }
 // even: c0 = a0 b0 - a1 b1; odd: c1 = a0 b1 + a1 b0
 __device__ __forceinline__ Fp2h f_mul(const Fp2h& a, const Fp2h& b) {
   const bool odd = pair_odd();
   const Fp ao = pair_swap(a.v);
   const Fp bo = pair_swap(b.v);
-  const Fp x = fp_mul(odd ? ao : a.v, b.v);
-  const Fp y = fp_mul(odd ? a.v : ao, bo);
-  return {odd ? fp_add(x, y) : fp_sub(x, y)};
+  const Fp x = mont_mul(odd ? ao : a.v, b.v);
+  const Fp y = mont_mul(odd ? a.v : ao, bo);
+  return {odd ? mod_add(x, y) : mod_sub(x, y)};
 }
-__device__ __forceinline__ bool f_is_zero(const Fp2h& a) { return pair_all(fp_is_zero(a.v)); }
+__device__ __forceinline__ bool f_is_zero(const Fp2h& a) { return pair_all(elem_is_zero(a.v)); }
 __device__ __forceinline__ bool f_is_one(const Fp2h& a) {
-  return pair_all(pair_odd() ? fp_is_zero(a.v) : fp_is_one(a.v));
+  return pair_all(pair_odd() ? elem_is_zero(a.v) : elem_is_one(a.v));
 }
-__device__ __forceinline__ void f_set_one(Fp2h& a) { a.v = pair_odd() ? fp_zero() : fp_one(); }
-__device__ __forceinline__ void f_set_zero(Fp2h& a) { a.v = fp_zero(); }
+__device__ __forceinline__ void f_set_one(Fp2h& a) { a.v = pair_odd() ? elem_zero() : elem_one(); }
+__device__ __forceinline__ void f_set_zero(Fp2h& a) { a.v = elem_zero(); }
 
 // threads that hold one lane's element
 template <class F>
@@ -381,15 +415,17 @@ struct OutArrs {
   long long ld;
 };
 
-__device__ __forceinline__ Fp load_fp(const uint32_t* a, size_t idx, size_t ld) {
-  Fp r;
+template <class E = Fp>
+__device__ __forceinline__ E load_fp(const uint32_t* a, size_t idx, size_t ld) {
+  E r;
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     r.w[k] = a[idx + (size_t)(2 * k) * ld] | (a[idx + (size_t)(2 * k + 1) * ld] << 16);
   return r;
 }
 
-__device__ __forceinline__ void store_fp(uint32_t* a, size_t idx, size_t ld, const Fp& v) {
+template <class E>
+__device__ __forceinline__ void store_fp(uint32_t* a, size_t idx, size_t ld, const E& v) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     a[idx + (size_t)(2 * k) * ld] = v.w[k] & 0xFFFFu;

@@ -2,10 +2,12 @@
 
 Pipeline (the JAX package's ``groth16/prove.py``):
 
-  1. sparse A/B/C constraint evaluation: gather + per-limb segment sum
-     (lazy int64 accumulation, then one Montgomery wide-reduce per element)
-  2. H(x) quotient via coset NTT (ops/ntt.py, bit-reversal-free pipeline),
-     one pass for the k proofs of a batch (_h_pipeline_batch)
+  1. sparse A/B/C constraint evaluation over the three matrices stacked
+     as one CSR matrix (ops/h_kernels.sparse_matvec: the kernel K5 on the
+     GPU; the plain version a gather + a lazy per-limb segment sum)
+  2. H(x) quotient via coset NTT (ops/ntt.py, bit-reversal-free pipeline;
+     the kernel K4 on the GPU) and the pointwise quotient (K0), one pass
+     for the k proofs of a batch (_h_pipeline_batch)
   3. five MSMs (A, B1, C and H over G1, B2 over G2): bucket MSMs
      (ops/msm.py, point additions in the kernels K1/K2 on the GPU) for
      m_pad >= 256 or with force_pippenger, else batched double-and-add
@@ -32,7 +34,7 @@ import torch
 from ..curve import bn254_host as host
 from ..device import resolve_device
 from ..fields.limb import Fp, Fr
-from ..ops import ec, msm
+from ..ops import ec, h_kernels, msm
 from ..ops.ntt import NTTContext
 from ..r1cs.builder import ConstraintSystem
 from .setup import ProvingKey
@@ -119,6 +121,8 @@ class ProverContext:
                                 device=self.device),
                 Fr.to_device(coeffs, device=self.device),
             ))
+        self._csr = h_kernels.CSR.stack(self._mats, self.ntt.n)
+        self._zinv = pow(self.ntt.z_coset_int, -1, host.R)
         self._h_sharded = self._build_sharded_h(mesh) if mesh is not None \
             else None
 
@@ -159,8 +163,7 @@ class ProverContext:
                             cols[e * E:(e + 1) * E].to(dev),
                             coeffs[:, e * E:(e + 1) * E].to(dev))
                            for e, dev in enumerate(mesh.devices)])
-        zinv_int = pow(self.ntt.z_coset_int, -1, host.R)
-        zinv = replicate(Fr.broadcast_const(zinv_int, (1,),
+        zinv = replicate(Fr.broadcast_const(self._zinv, (1,),
                                             device=self.device), mesh)
 
         def matvec(mat_shards, z_blocks):
@@ -219,20 +222,6 @@ class ProverContext:
         pts = [conv(Fp, p, host.P)[:k] for p in parts]
         return [functools.reduce(add, (p[j] for p in pts)) for j in range(k)]
 
-    def _matvec(self, mat, z_mont):
-        """<M, z> per constraint row of every proof: z_mont [L, k, m_pad]
-        -> [L, k, domain_n] Montgomery evals."""
-        rows, cols, coeffs = mat
-        gathered = z_mont[:, :, cols]                  # [L, k, nnz]
-        prod = Fr.mont_mul(gathered, coeffs[:, None, :])   # Montgomery form
-        # per-limb lazy segment sum; each limb < 2^16, rows have < 2^16 terms
-        sums = torch.zeros((Fr.L, z_mont.shape[1], self.ntt.n),
-                           dtype=torch.int64, device=z_mont.device)
-        sums.index_add_(2, rows, prod.to(torch.int64))
-        norm = Fr.normalize_u32_limbs([sums[j] for j in range(Fr.L)])
-        plain = Fr.mont_reduce_wide(norm)              # drops one R factor
-        return Fr.to_mont(plain)                       # restore Montgomery
-
     def _b2_msm_host(self, witness):
         """sum_i z_i * B2_i on host Jacobian bigints (tiny circuits only —
         see host_b2 in prove_batch). Returns host affine."""
@@ -262,20 +251,17 @@ class ProverContext:
         [L, k, n] plain limbs (bit-reversed coefficient order, matching the
         h_query layout). Every op takes the whole batch, so the number of
         ops launched does not depend on k (the JAX package vmaps its
-        one-proof program over the proof axis)."""
-        az = self._matvec(self._mats[0], z_mont)
-        bz = self._matvec(self._mats[1], z_mont)
-        cz = self._matvec(self._mats[2], z_mont)
-        ntt = self.ntt
-        a_cs = ntt.coset_evals_from_coeffs_br(ntt.dif_inverse(az))
-        b_cs = ntt.coset_evals_from_coeffs_br(ntt.dif_inverse(bz))
-        c_cs = ntt.coset_evals_from_coeffs_br(ntt.dif_inverse(cz))
-        num = Fr.sub(Fr.mont_mul(a_cs, b_cs), c_cs)
-        zinv = Fr.broadcast_const(pow(ntt.z_coset_int, -1, host.R), (1, 1),
-                                  device=z_mont.device)
-        h_cs = Fr.mont_mul(num, zinv)
-        h_br = ntt.coeffs_br_from_coset_evals(h_cs)
-        return Fr.from_mont(h_br)
+        one-proof program over the proof axis). On the GPU: one K5 launch
+        for A z, B z and C z, the three coset transforms as one K4 pass
+        over their 3k rows, one K0 quotient, one K4 pass back (from_mont
+        folded in)."""
+        L, k = z_mont.shape[0], z_mont.shape[1]
+        n = self.ntt.n
+        abc = h_kernels.sparse_matvec(z_mont.contiguous(), self._csr)
+        # abc: [L, 3, k, n], A z, B z, C z
+        cs = self.ntt.coset_evals_from_evals(abc.reshape(L, 3 * k, n))
+        h_cs = h_kernels.quotient(cs.reshape(L, 3, k, n), self._zinv)
+        return self.ntt.coeffs_br_from_coset_evals(h_cs, from_mont=True)
 
     def _h_core(self, z_mont_1):
         """One proof's quotient: z_mont [L, m_pad] -> h [L, n] plain limbs."""
@@ -437,5 +423,5 @@ class ProverContext:
                     vals = vals + [0] * (self.m_pad - len(vals))
                 cols.append(Fr.to_device(vals, mont=False, device=self.device))
             z_plain = torch.stack(cols, dim=1)
-        z_mont = Fr.to_mont(z_plain)
+        z_mont = h_kernels.to_mont(z_plain)
         return z_mont, z_plain, n_bits

@@ -11,6 +11,8 @@ and waits for all of them; ``load(name)`` builds on first use.
     stark csrc/stark_kernels.cu -> build/libzksc_stark.so (K7a blake2s,
          K7b circle_fft and circle_layer, K7c composition, K7d
          aes_composition)
+    h    csrc/h_kernels.cu   -> build/libzksc_h.so    (the Groth16 H pass
+         over Fr: K0 fr_elementwise, K4 ntt_group, K5 sparse_matvec)
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ LIBS = {
     "ec": ("ec_kernels.cu", ("bn254.cuh",), "libzksc_ec.so"),
     "msm": ("msm_kernels.cu", ("bn254.cuh",), "libzksc_msm.so"),
     "stark": ("stark_kernels.cu", ("m31.cuh",), "libzksc_stark.so"),
+    "h": ("h_kernels.cu", ("bn254.cuh",), "libzksc_h.so"),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

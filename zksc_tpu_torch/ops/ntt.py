@@ -1,4 +1,4 @@
-"""Radix-2 NTT over BN254 Fr for the Groth16 H-polynomial (plain PyTorch).
+"""Radix-2 NTT over BN254 Fr for the Groth16 H-polynomial.
 
 The JAX package's ``ops/ntt.py`` pipeline, unchanged in its arithmetic:
 
@@ -7,7 +7,13 @@ The JAX package's ``ops/ntt.py`` pipeline, unchanged in its arithmetic:
     is bit-reversed: no runtime bit-reversal permutation anywhere.
     Order-sensitive tables (coset shift powers) are precomputed in
     bit-reversed order on the host instead.
-  - Each butterfly stage is a reshape + one batched Montgomery multiply.
+  - The plain version (a CPU tensor, and the reference the kernel is held
+    to): each butterfly stage is a reshape + one batched Montgomery
+    multiply (dif_stages / dit_stages). On a CUDA tensor every transform is
+    K4 (ops/h_kernels.ntt: a few launches of stage groups in shared
+    memory). Either way a transform's products by a table (1/n, the coset
+    shift powers, and from_mont where asked) are one product by a table
+    folded on the host side: the values are the same canonical residues.
 
 The Groth16 coset pipeline (see groth16/prove.py):
   evals(natural) --DIF(w^-1, 1/n)--> coeffs(bitrev)
@@ -21,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields.limb import LimbField
+from ..fields.limb import Fr, LimbField
+from . import h_kernels
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -130,6 +137,20 @@ class NTTContext:
         # Z_H(shift * w^i) = shift^n - 1 (constant on the coset)
         self.z_coset_int = (pow(coset_shift, n, F.p) - 1) % F.p
         self._ninv = F.broadcast_const(self.n_inv, (1,), device=device)
+        # the tables a transform multiplies by ([L, n] or [L, 1]): 1/n, the
+        # coset shift powers, their products with 1/n (shift^i / n,
+        # shift^-i / n), and shift^-i / n as a plain residue (a Montgomery
+        # product by it also leaves Montgomery form: from_mont folded in)
+        ninv_shift_inv = F.mont_mul(self.shift_inv_pows_br, self._ninv)
+        self._scales = {
+            "ninv": self._ninv, "shift": self.shift_pows_br,
+            "ninv_shift": F.mont_mul(self.shift_pows_br, self._ninv),
+            "ninv_shift_inv": ninv_shift_inv,
+            "ninv_shift_inv_plain": F.from_mont(ninv_shift_inv)}
+        self._words = None
+        if F is Fr and device is not None and \
+                torch.device(device).type == "cuda":
+            self._kernel_tables()
 
     def _stage_tables(self, w_root: int):
         F, n = self.F, self.n
@@ -142,23 +163,59 @@ class NTTContext:
             length //= 2
         return tables
 
+    def _kernel_tables(self):
+        """K4's packed tables: the powers w^-e and w^e, e < n / 2 (the span-n
+        stage tables), [n / 2, 8] words each, and every scale table."""
+        if self._words is None:
+            if self.F is not Fr:
+                raise ValueError("the NTT kernel computes over BN254 Fr only")
+            pack = h_kernels.pack_words
+            self._words = (pack(self._tw_inv[self.n]),
+                           pack(self._tw_fwd[self.n]),
+                           {k: pack(v) for k, v in self._scales.items()})
+        return self._words
+
+    def _transform_plain(self, x, dif: bool, dit: bool, scale):
+        """Plain K4: the DIF stages, the product by the table named `scale`
+        (or none), the DIT stages, over x [L, *batch, n]; any device."""
+        F = self.F
+        if dif:
+            x = dif_stages(F, x, self._tw_inv, self.n)
+        if scale is not None:
+            x = F.mont_mul(x, _lift(self._scales[scale], x))
+        if dit:
+            x = dit_stages(F, x, self._tw_fwd, self.n)
+        return x
+
+    def _transform(self, x, dif: bool, dit: bool, scale):
+        """_transform_plain on a CPU tensor; K4 on a CUDA tensor."""
+        if x.device.type == "cpu":
+            return self._transform_plain(x, dif, dit, scale)
+        tw_inv, tw_fwd, packed = self._kernel_tables()
+        return h_kernels.ntt(x.contiguous(), tw_inv, tw_fwd, dif, dit,
+                             None if scale is None else packed[scale])
+
     def dif_inverse(self, evals):
         """evals (natural order) -> coeffs (bit-reversed), includes 1/n
         scale. evals: [L, *batch, n] Montgomery form, one transform a row."""
-        x = dif_stages(self.F, evals, self._tw_inv, self.n)
-        return self.F.mont_mul(x, _lift(self._ninv, x))
+        return self._transform(evals, True, False, "ninv")
 
     def dit_forward(self, coeffs_br):
         """coeffs (bit-reversed) -> evals (natural order)."""
-        return dit_stages(self.F, coeffs_br, self._tw_fwd, self.n)
+        return self._transform(coeffs_br, False, True, None)
 
     def coset_evals_from_coeffs_br(self, coeffs_br):
         """coeffs (bitrev) -> evaluations on the coset shift*<w> (natural)."""
-        scaled = self.F.mont_mul(coeffs_br,
-                                 _lift(self.shift_pows_br, coeffs_br))
-        return self.dit_forward(scaled)
+        return self._transform(coeffs_br, False, True, "shift")
 
-    def coeffs_br_from_coset_evals(self, evals):
-        """evaluations on coset (natural) -> coeffs (bitrev)."""
-        c = self.dif_inverse(evals)
-        return self.F.mont_mul(c, _lift(self.shift_inv_pows_br, c))
+    def coeffs_br_from_coset_evals(self, evals, from_mont: bool = False):
+        """evaluations on coset (natural) -> coeffs (bitrev); with from_mont,
+        as plain residues (F.from_mont of the result)."""
+        return self._transform(evals, True, False, "ninv_shift_inv_plain"
+                               if from_mont else "ninv_shift_inv")
+
+    def coset_evals_from_evals(self, evals):
+        """evaluations on the domain (natural) -> evaluations on the coset
+        (natural): coset_evals_from_coeffs_br(dif_inverse(evals)), the DIF
+        and DIT sharing K4's launch of the smallest spans."""
+        return self._transform(evals, True, True, "ninv_shift")
