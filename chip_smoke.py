@@ -23,7 +23,7 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      circle_fft_kernel<interp, B, threads> and circle_layer_kernel<interp,
      rev>, K7c composition_kernel<offset, points> and
      composition_finish_kernel, K7d aes_composition_kernel<offset, points>;
-     the H kernels: K0 fr_elementwise_kernel<quotient>, K4
+     the H kernels: K0 fr_elementwise_kernel<mode>, K4
      ntt_group_kernel<dif, dit>, K5 sparse_matvec_kernel).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
@@ -74,14 +74,17 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      timed beside its bound; each K7c line
      names the launch shape the wrapper picked (composition_plan).
      The Groth16 H kernels, each equal to its plain version limb for limb
-     (check_h_kernels): K0 (to_mont and the quotient) over 8,191
-     elements, K4 every transform form at 2^8 and 2^10 with a 2^4 tile
-     (two and three launches a direction) and at 2^12 in one group, K5 over
-     1,000 rows with empty and 300-term rows; then at n = 2^16, 2^17 and
-     2^18 with k = 1 and 4: to_mont of [16, k, n], K5 over a random CSR of
-     n rows, K4's coset pass over [16, 3k, n], the quotient over
+     (check_h_kernels): K0 (to_mont, the quotient, the pack of z and both
+     halves of both cross stages) over 8,191 elements, K4 every transform
+     form at 2^8 and 2^10 with a 2^4 tile (two and three launches a
+     direction) and at 2^11 in one group, K5 over 1,000 rows with empty,
+     300-term and 1,500-term rows (its three bins) and every coefficient
+     class; then at n = 2^16, 2^17 and 2^18 with k = 1 and 4: to_mont of
+     [16, k, n], K5 over a random CSR of n rows, K4's coset pass over
+     [16, 3k, n] in the tile picked from the grid, the quotient over
      [16, 3, k, n] and K4's way back with from_mont over [16, k, n], each
-     timed beside its bound.
+     timed beside its bound (K5: both bounds, a product a term and the
+     classes' work).
      Then the Merkle crossover: whole trees of 4-4,096 16-byte leaves or 8-word
      column leaves by hashlib and by K7a's tree launch (with its copies),
      host clock.
@@ -181,9 +184,14 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      beside the one-device stages are the layer's overhead, not a
      speed-up): the sharded H limbs equal the one-device limbs, the proof
      under a fixed rng equals the one-device proof, verifies, and a
-     flipped ciphertext byte is rejected; K1 and K2 launch counts, reset
-     just before, > 0. ShardedNTT over 8 shards at 2^16 and 2^18, each
-     transform equal to NTTContext's. The x^100 circuit of phase 7 on a
+     flipped ciphertext byte is rejected; K1, K2, K0, K4 and K5 launch
+     counts, reset just before, > 0 (the sharded H on the kernels: each
+     shard's row slice through K5, the local stages through K4, the
+     exchanged stages and the quotient through K0), and the sharded H's
+     launch calls under torch.profiler at most MESH_H_MAX_LAUNCHES (150),
+     which no eager Fr op would fit under; the D = 4 proof's H calls are
+     recorded for phase 5. ShardedNTT over 8 shards at 2^16 and 2^18, each
+     transform (and the two the H pass runs) equal to NTTContext's. The x^100 circuit of phase 7 on a
      mesh of 4 (one K3 ladder a shard, partial sums added on the host):
      equal to the one-device proof, K3 > 0. Two processes (this script
      with --mesh-worker PID PORT) under parallel.multihost.initialize
@@ -226,11 +234,14 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      the adds whose Q is affine, which also go into the kernels line;
      likewise for the recorded chacha20-toprf proof of phase 8 and phase
      14's warm k = 4 batches. The H kernels (K0, K4, K5) of the same
-     chacha20, aes-128-ctr, chacha20-toprf and k = 4 runs: each variant's
+     chacha20, aes-128-ctr, chacha20-toprf and k = 4 runs and of phase
+     13's D = 4 mesh proof: each variant's
      largest call replayed through the kernel and its plain version
      (equal), timed beside its bound (Fr products x 258 IMAD over the
-     card's rate, or the bytes read once and written once over HBM), then
-     every H call of each run summed per kernel. For the
+     card's rate, or the bytes read once and written once over HBM; K5
+     both ways: a product a term, and the classes' work, where only a wide
+     coefficient's term costs a product), then every H call of each run
+     summed per kernel. For the
      stark engine's warm proofs (phase 9's chacha20 chunk and record, phase
      10's aes-128-ctr chunk and aes-256-ctr record, phase 11's stark-stwo
      chunk and record): the largest call of each K7
@@ -1033,16 +1044,21 @@ class Recorder:
     the ceremony's path the K3 input kept is h_query: it and c_query have
     the same lane count, and _apply_delta scales h_query first. Likewise
     for the Groth16 H kernels (`h_calls`, `h_log`): the h_kernels functions
-    groth16/prove.py calls and NTTContext._transform, on CUDA tensors."""
+    groth16/prove.py and ops/ntt_sharded.py call, NTTContext._transform
+    and ShardedNTT._local_block (a mesh block's K4 call), on CUDA
+    tensors."""
 
     def __init__(self):
         from zksc_tpu_torch.ops import ec_kernels, h_kernels, msm_kernels
         from zksc_tpu_torch.ops.ntt import NTTContext
+        from zksc_tpu_torch.ops.ntt_sharded import ShardedNTT
         self.mods = {"chunk_scan": ec_kernels, "jac_add_n": ec_kernels,
                      "ladder": msm_kernels}
         self.orig = {k: getattr(m, k) for k, m in self.mods.items()}
         self.h_mods = {"to_mont": h_kernels, "quotient": h_kernels,
-                       "sparse_matvec": h_kernels, "_transform": NTTContext}
+                       "pack_z": h_kernels, "cross_stage": h_kernels,
+                       "sparse_matvec": h_kernels, "_transform": NTTContext,
+                       "_local_block": ShardedNTT}
         self.h_orig = {k: getattr(m, k) for k, m in self.h_mods.items()}
         self.calls = {}
         self.log = []
@@ -3121,9 +3137,10 @@ def run_tool(args: list, missing: str | None = None):
                              f"{out.returncode}")
 
 
-def drive_mesh(api, reset_counts, counts) -> dict:
+def drive_mesh(api, reset_counts, counts, rec) -> dict:
     """Phase 13. Returns the launch counts of the D = 4 chacha20 proof
-    (K1, K2) and of the D = 4 ladder proof (K3)."""
+    (K1, K2, K0, K4, K5) and of the D = 4 ladder proof (K3); `rec` logs the
+    H calls of one more D = 4 proof for phase 5."""
     import random
 
     import torch
@@ -3177,6 +3194,14 @@ def drive_mesh(api, reset_counts, counts) -> dict:
         if ctx._h_sharded is None or not torch.equal(hD, h1):
             raise AssertionError(f"phase 13: the D = {D} H limbs differ "
                                  "from the one-device limbs")
+        _, n_h, dev_ms = h_pipeline_launches(ctx, z_mont)
+        log(f"phase 13 sharded H at D = {D}: {n_h} kernel launches "
+            f"(profiled host calls; cap {MESH_H_MAX_LAUNCHES}), device "
+            f"{dev_ms:.2f} ms (profiled); limbs equal to one device")
+        if n_h > MESH_H_MAX_LAUNCHES:
+            raise AssertionError(f"phase 13: the D = {D} sharded H made "
+                                 f"{n_h} launches, above "
+                                 f"{MESH_H_MAX_LAUNCHES}")
         ctx.prove(wit, rng=blinding())             # warm-up
         torch.cuda.synchronize()
         reset_counts()
@@ -3197,10 +3222,15 @@ def drive_mesh(api, reset_counts, counts) -> dict:
             f"launches {launches} ({time.time() - t:.2f} s with the context)")
         if not (same and ok and rejected):
             raise AssertionError(f"phase 13: the D = {D} proof failed")
-        for k in ("chunk_scan", "jac_add_n"):
+        for k in ("chunk_scan", "jac_add_n") + H_NAMES:
             if launches[k] <= 0:
                 raise AssertionError(f"phase 13: {k} not launched at D = {D}")
         out["chacha20"] = launches
+    with rec:                                      # phase 5's mesh calls
+        rec.window = True
+        ctx.prove(wit, rng=blinding())
+        rec.window = False
+    rec.calls, rec.log = {}, []                    # K1-K3 replay elsewhere
     log(f"phase 13 peak device memory of the mesh proofs "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
         f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB "
@@ -3218,11 +3248,14 @@ def drive_mesh(api, reset_counts, counts) -> dict:
         times = []
         for name in ("dif_inverse", "dit_forward",
                      "coset_evals_from_coeffs_br",
-                     "coeffs_br_from_coset_evals"):
+                     "coeffs_br_from_coset_evals", "coset_evals_from_evals",
+                     "coeffs_br_from_coset_evals from_mont"):
+            kw = {"from_mont": True} if name.endswith("from_mont") else {}
+            fn_name = name.split()[0]
             ms = []
-            for fn in (lambda: getattr(ntt, name)(x),
+            for fn in (lambda: getattr(ntt, fn_name)(x, **kw),
                        lambda: sntt.sharding.gather(
-                           getattr(sntt, name)(blocks))):
+                           getattr(sntt, fn_name)(blocks, **kw))):
                 fn()
                 torch.cuda.synchronize()
                 t1 = time.time()
@@ -3287,6 +3320,10 @@ def drive_mesh(api, reset_counts, counts) -> dict:
 BATCH_SEED = 2026         # phase 14's requests and blinding
 # the H pass's launch calls, at most (K0, K4, K5 and the glue around them)
 H_MAX_LAUNCHES = 200
+# the sharded H's launch calls at D = 2 and 4, at most: at D = 4 one K0
+# pack, 4 K5, 8 + 8 + 8 K0 cross stages, 12 + 8 K4 and 4 K0 quotients,
+# one gather; the eager Fr ops it replaces made thousands
+MESH_H_MAX_LAUNCHES = 150
 
 
 def h_pipeline_launches(ctx, z_mont):
@@ -3503,8 +3540,17 @@ def h_variant(attr, args):
     if attr == "_transform":
         ctx, x, dif, dit, scale = args
         return ("ntt_group", NTT_FORMS[(dif, dit, scale)]), x
+    if attr == "_local_block":
+        sntt, d, x, dif, dit, scale = args
+        return ("ntt_group", "mesh block " + NTT_FORMS[(dif, dit, scale)]), x
     if attr == "sparse_matvec":
         return ("sparse_matvec", "A, B, C stacked"), args[0]
+    if attr == "pack_z":
+        return ("fr_elementwise", "pack"), args[0]
+    if attr == "cross_stage":
+        x, _, _, _, _, dif, v_half = args
+        return ("fr_elementwise", f"cross {'dif' if dif else 'dit'} "
+                                  f"{'v' if v_half else 'u'}"), x
     return ("fr_elementwise", attr), args[0]
 
 
@@ -3513,6 +3559,10 @@ def h_fns(key, args):
     from zksc_tpu_torch.fields.limb import Fr
     from zksc_tpu_torch.ops import h_kernels
     name, variant = key
+    if name == "ntt_group" and variant.startswith("mesh block"):
+        sntt, d, x, dif, dit, scale = args
+        return (lambda: sntt._local_block(d, x, dif, dit, scale),
+                lambda: sntt._local_plain(d, x, dif, dit, scale))
     if name == "ntt_group":
         ctx, x, dif, dit, scale = args
         return (lambda: ctx._transform(x, dif, dit, scale),
@@ -3523,48 +3573,95 @@ def h_fns(key, args):
     if variant == "to_mont":
         return (lambda: h_kernels.to_mont(args[0]),
                 lambda: Fr.to_mont(args[0]))
+    if variant == "pack":
+        return (lambda: h_kernels.pack_z(args[0]),
+                lambda: h_kernels.pack_z_plain(args[0]))
+    if variant.startswith("cross"):
+        return (lambda: h_kernels.cross_stage(*args),
+                lambda: h_kernels.cross_stage_plain(*args))
     return (lambda: h_kernels.quotient(*args),
             lambda: h_kernels.quotient_plain(*args))
+
+
+def k5_kinds(csr) -> list:
+    """The number of K5 terms of each kind (h_kernels.TERM_*): +1, -1, +c,
+    -c (c < 2^32), wide."""
+    import torch
+    from zksc_tpu_torch.ops import h_kernels
+    kinds = (csr.terms[:, 0].long() & 0xFFFFFFFF) >> h_kernels.TERM_KIND_SHIFT
+    return torch.bincount(kinds, minlength=5).tolist()
 
 
 def h_shape(key, args) -> str:
     name, variant = key
     if name == "sparse_matvec":
         z, csr = args
-        return (f"k={z.shape[1]} m_pad={z.shape[2]} n={csr.n} "
-                f"nnz={csr.cols.numel()}")
-    x = args[1] if name == "ntt_group" else args[0]
+        return (f"k={z.shape[0]} m_pad={z.shape[1]} n={csr.n} "
+                f"nnz={csr.cols.numel()} bins={list(csr.bins)} "
+                f"kinds={k5_kinds(csr)}")
+    if name == "ntt_group":
+        x = args[2] if variant.startswith("mesh block") else args[1]
+    else:
+        x = args[0]
     return "x".join(str(d) for d in x.shape)
+
+
+def k5_bound_per_term_ms(args, imad_rate):
+    """K5's bound with one Fr product a term, against the bytes
+    of the limb-major z (64 B an element), a 32-byte coefficient and a
+    4-byte column a term, the row pointers and the output."""
+    z, csr = args
+    k, m_pad = z.shape[0], z.shape[1]
+    nnz = csr.cols.numel()
+    ops_ms = k * nnz * IMAD_PER_FP_MUL / imad_rate * 1e3
+    nbytes = (FR_BYTES * k * m_pad + 36 * nnz + 4 * (csr.M * csr.n + 1)
+              + FR_BYTES * csr.M * k * csr.n)
+    return max(ops_ms, nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def h_bound_ms(key, args, imad_rate):
     """(bound ms, bound_by, Fr products) of one H call: the products
-    (IMAD_PER_FP_MUL each; adds and subs not counted) over the card's IMAD
-    rate against the bytes over HBM: each input read once (the boundary's
-    64 B an element, 32 B a packed table entry or coefficient, 4 B a
-    column or row pointer), each output written once."""
+    (IMAD_PER_FP_MUL each; adds, subs and K5's 256 x 32-bit products not
+    counted) over the card's IMAD rate against the bytes over HBM: each
+    input read once (the boundary's 64 B an element, 32 B a packed table
+    entry, wide coefficient or element of K5's packed z, 8 B a K5 term, 4 B
+    a row pointer or bin row), each output written once. K5 counts the
+    work its coefficient classes need: a product only for a wide
+    coefficient's term (k5_bound_per_term_ms counts one a term)."""
     name, variant = key
     if name == "ntt_group":
-        ctx, x, dif, dit, scale = args
+        if variant.startswith("mesh block"):
+            sntt, _, x, dif, dit, scale = args
+            ctx = sntt.ntt
+        else:
+            ctx, x, dif, dit, scale = args
         n = x.shape[-1]
         rows = x.numel() // (16 * n)
         log_n = n.bit_length() - 1
         prods = rows * (n // 2) * log_n * (int(dif) + int(dit))
         nbytes = 2 * FR_BYTES * rows * n + 32 * (n // 2) * (int(dif) + int(dit))
         if scale is not None:
-            width = ctx._scales[scale].shape[-1]
+            width = min(ctx._scales[scale].shape[-1], n)
             prods += rows * n
             nbytes += 32 * width
     elif name == "sparse_matvec":
         z, csr = args
-        k, m_pad = z.shape[1], z.shape[2]
-        nnz = csr.cols.numel()
-        prods = k * nnz
-        nbytes = (FR_BYTES * k * m_pad + 36 * nnz + 4 * (csr.M * csr.n + 1)
-                  + FR_BYTES * csr.M * k * csr.n)
+        k, m_pad = z.shape[0], z.shape[1]
+        n_wide = k5_kinds(csr)[4]
+        prods = k * n_wide
+        nbytes = (32 * k * m_pad + 8 * csr.cols.numel() + 32 * n_wide
+                  + 4 * (2 * csr.M * csr.n + 1) + FR_BYTES * csr.M * k * csr.n)
     elif variant == "to_mont":
         N = args[0].numel() // 16
         prods, nbytes = N, 2 * FR_BYTES * N
+    elif variant == "pack":
+        N = args[0].numel() // 16
+        prods, nbytes = 0, (FR_BYTES + 32) * N
+    elif variant.startswith("cross"):
+        x = args[0]
+        N, C = x.numel() // 16, x.shape[-1]
+        prods = 0 if variant == "cross dif u" else N
+        nbytes = 3 * FR_BYTES * N + (0 if prods == 0 else 32 * C)
     else:
         N = args[0].numel() // 48
         prods, nbytes = 2 * N, 4 * FR_BYTES * N
@@ -3590,11 +3687,31 @@ def fr_random(shape, device, gen):
     return x
 
 
+def class_coeffs(count: int, rng, device, gen):
+    """Montgomery coefficients [16, count] of K5's classes, a third each:
+    +-1, +-c with c < 2^32, and wide (random residues)."""
+    import numpy as np
+    import torch
+    from zksc_tpu_torch.fields.limb import Fr
+    kind = rng.integers(0, 3, count)
+    c = rng.integers(2, 1 << 32, count, dtype=np.int64)
+    c[kind == 0] = 1
+    plain = torch.zeros((Fr.L, count), dtype=torch.int32, device=device)
+    cc = torch.as_tensor(c, device=device)
+    plain[0], plain[1] = (cc & 0xFFFF).to(torch.int32), (cc >> 16).to(torch.int32)
+    neg = torch.as_tensor(rng.random(count) < 0.5, device=device)
+    plain[:, neg] = Fr.neg(plain[:, neg])
+    wide = torch.as_tensor(kind == 2, device=device)
+    plain[:, wide] = fr_random((int(wide.sum()),), device, gen)
+    return Fr.to_mont(plain)
+
+
 def random_csr(n: int, m_pad: int, rate: float, long_rows: int, rng,
-               device):
+               device, block_rows: int = 2):
     """Three stacked random matrices of n rows over m_pad columns: a
     Poisson(rate) number of terms a row, every 7th row empty, `long_rows`
-    rows of 300 terms; random Montgomery coefficients."""
+    rows of 300 terms (K5's warp bin) and `block_rows` of 1,500 (its block
+    bin); coefficients of every class (class_coeffs)."""
     import numpy as np
     import torch
     from zksc_tpu_torch.ops import h_kernels
@@ -3604,26 +3721,30 @@ def random_csr(n: int, m_pad: int, rate: float, long_rows: int, rng,
         counts = rng.poisson(rate, n)
         counts[::7] = 0
         counts[rng.integers(0, n, long_rows)] = 300
+        counts[rng.integers(0, n, block_rows)] = 1500
         rows = np.repeat(np.arange(n), counts)
         cols = rng.integers(0, m_pad, rows.size)
         mats.append((torch.as_tensor(rows, device=device),
                      torch.as_tensor(cols, device=device),
-                     fr_random((rows.size,), device, gen)))
+                     class_coeffs(rows.size, rng, device, gen)))
     return h_kernels.CSR.stack(mats, n)
 
 
 def check_h_kernels(device, imad_rate):
     """Phase 3: K0, K4, K5 against their plain versions, limb for limb. At
     check sizes: K0 over 8,191 and 3 x 8,191 elements (a ragged last
-    block); K4 every transform form at 2^8 and 2^10 with a 2^4 tile (two
-    and three launches a direction) and at 2^12 with the largest tile (one
-    group); K5 over 1,000 rows (empty rows, long rows, a ragged block). At
-    the paths' shapes, n = 2^16, 2^17, 2^18 with k = 1 and 4: to_mont of
-    [16, k, n], the quotient over [16, 3, k, n], the coset transform over
-    [16, 3k, n] and the way back (from_mont) over [16, k, n], K5 over a
-    random CSR of 3 x n rows (0.43 terms a row on average, 8 rows of 300;
-    the circuits' own matrices, 0.9-7.3 terms a row, are phase 5's). Each
-    line: the kernel's ms (CUDA events), the plain version's, the bound."""
+    block), its pack of z and both halves of both cross stages; K4 every
+    transform form at 2^8 and 2^10 with a 2^4 tile (two and three launches
+    a direction) and at 2^11 with the largest tile (one group); K5 over
+    1,000 rows (empty rows, warp and block rows, every coefficient class,
+    a ragged block). At the paths' shapes, n = 2^16, 2^17, 2^18 with k = 1
+    and 4: to_mont of [16, k, n], the quotient over [16, 3, k, n], the
+    coset transform over [16, 3k, n] and the way back (from_mont) over
+    [16, k, n] in the tiles picked from the grid, K5 over a random CSR of
+    3 x n rows (0.43 terms a row on average, 8 rows of 300 and 2 of
+    1,500; the circuits' own matrices, 0.9-7.3 terms a row, are phase
+    5's). Each line: the kernel's ms (CUDA events), the plain version's,
+    the bound (K5: both forms)."""
     import numpy as np
     import torch
     from zksc_tpu_torch.fields.limb import Fr
@@ -3639,8 +3760,10 @@ def check_h_kernels(device, imad_rate):
         ms, plain_ms, e = compare(label, run or k_run, plain or k_plain,
                                   lambda r: [r])
         bound, by, prods = h_bound_ms(key, args, imad_rate)
+        per_term = (f", a product a term {k5_bound_per_term_ms(args, imad_rate):.4f} ms"
+                    if key[0] == "sparse_matvec" else "")
         log(f"phase 3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-            f"bound {bound:.4f} ms ({by}, {prods} Fr products), "
+            f"bound {bound:.4f} ms ({by}, {prods} Fr products{per_term}), "
             f"max_abs_err={e}")
         err = max(err, e)
 
@@ -3649,7 +3772,17 @@ def check_h_kernels(device, imad_rate):
     check("K0 to_mont N=8191", ("fr_elementwise", "to_mont"), (x,))
     abc = fr_random((3, 8191), device, gen)
     check("K0 quotient N=8191", ("fr_elementwise", "quotient"), (abc, 12345))
-    for log_n, log_tile in ((8, 4), (10, 4), (12, 12)):
+    check("K0 pack [16, 2, 4095]", ("fr_elementwise", "pack"),
+          (fr_random((2, 4095), device, gen),))
+    tw_inv, tw_fwd, _ = NTTContext(Fr, 1 << 14, device=device)._kernel_tables()
+    x, other = fr_random((8191,), device, gen), fr_random((8191,), device, gen)
+    for dif in (True, False):
+        for v_half in (False, True):
+            args = (x, other, tw_inv if dif else tw_fwd, 1, 1, dif, v_half)
+            check(f"K0 cross {'dif' if dif else 'dit'} "
+                  f"{'v' if v_half else 'u'} N=8191", h_variant(
+                      "cross_stage", args)[0], args)
+    for log_n, log_tile in ((8, 4), (10, 4), (11, 11)):
         ctx = NTTContext(Fr, 1 << log_n, device=device)
         tw_inv, tw_fwd, words = ctx._kernel_tables()
         x = fr_random((3, 1 << log_n), device, gen)
@@ -3662,8 +3795,9 @@ def check_h_kernels(device, imad_rate):
                   f"({groups} groups)", ("ntt_group", form),
                   (ctx, x, dif, dit, scale), run=run)
     csr = random_csr(1000, 300, 1.3, 3, rng, device)
-    z = fr_random((2, 300), device, gen)
-    check("K5 n=1000 k=2 (empty and 300-term rows)",
+    z = h_kernels.pack_z(fr_random((2, 300), device, gen))
+    check(f"K5 n=1000 k=2 (empty, 300- and 1,500-term rows; bins "
+          f"{list(csr.bins)}, kinds {k5_kinds(csr)})",
           ("sparse_matvec", "A, B, C stacked"), (z, csr))
     for log_n in (16, 17, 18):
         n = 1 << log_n
@@ -3674,9 +3808,11 @@ def check_h_kernels(device, imad_rate):
             check(f"K0 to_mont [16, {k}, 2^{log_n}]",
                   ("fr_elementwise", "to_mont"), (z,))
             check(f"K5 k={k} n=2^{log_n} nnz={csr.cols.numel()}",
-                  ("sparse_matvec", "A, B, C stacked"), (z, csr))
+                  ("sparse_matvec", "A, B, C stacked"),
+                  (h_kernels.pack_z(z), csr))
             abc = fr_random((3 * k, n), device, gen)
-            check(f"K4 coset_evals_from_evals [16, {3 * k}, 2^{log_n}]",
+            check(f"K4 coset_evals_from_evals [16, {3 * k}, 2^{log_n}] "
+                  f"tile 2^{h_kernels.pick_log_tile(log_n, 3 * k)}",
                   ("ntt_group", "coset_evals_from_evals"),
                   (ctx, abc, True, True, "ninv_shift"))
             check(f"K0 quotient [16, 3, {k}, 2^{log_n}]",
@@ -3684,7 +3820,7 @@ def check_h_kernels(device, imad_rate):
                   (abc.view(16, 3, k, n), ctx.z_coset_int))
             h = abc[:, :k].contiguous()
             check(f"K4 coeffs_br_from_coset_evals from_mont [16, {k}, "
-                  f"2^{log_n}]",
+                  f"2^{log_n}] tile 2^{h_kernels.pick_log_tile(log_n, k)}",
                   ("ntt_group", "coeffs_br_from_coset_evals from_mont"),
                   (ctx, h, True, False, "ninv_shift_inv_plain"))
         del ctx, csr
@@ -3706,14 +3842,21 @@ def time_h_kernels(calls, imad_rate, path: str):
                                     lambda r: [r])
         paced = cuda_ms(run, reps=3, paced=True)
         bound, by, prods = h_bound_ms(key, args, imad_rate)
+        row = {"name": key[0], "path": path, "variant": key[1],
+               "shape": shape, "ms": ms, "paced_ms": paced,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "ops_needed": prods, "max_abs_err": err}
+        per_term = ""
+        if key[0] == "sparse_matvec":
+            row["bound_ms_product_a_term"] = k5_bound_per_term_ms(args,
+                                                                  imad_rate)
+            per_term = (f"; a product a term "
+                        f"{row['bound_ms_product_a_term']:.4f} ms")
         log(f"[{path}] {key[0]} {key[1]} {shape}: kernel {ms:.4f} ms "
             f"({paced:.4f} ms paced by the host), plain {plain_ms:.2f} ms, "
-            f"bound {bound:.4f} ms ({by}, {prods} Fr products), "
+            f"bound {bound:.4f} ms ({by}, {prods} Fr products{per_term}), "
             f"max_abs_err={err}")
-        rows.append({"name": key[0], "path": path, "variant": key[1],
-                     "shape": shape, "ms": ms, "paced_ms": paced,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "ops_needed": prods, "max_abs_err": err})
+        rows.append(row)
     return rows
 
 
@@ -3732,6 +3875,10 @@ def h_proof_totals(log_calls, imad_rate, path: str, counts, reset_counts):
         bound, _, prods = h_bound_ms(key, args, imad_rate)
         t = tot.setdefault(key[0], {"launches": 0, "ms": 0.0, "paced_ms": 0.0,
                                     "bound_ms": 0.0, "ops_needed": 0})
+        if key[0] == "sparse_matvec":
+            t["bound_ms_product_a_term"] = t.get("bound_ms_product_a_term",
+                                                 0.0) + k5_bound_per_term_ms(
+                                                     args, imad_rate)
         t["launches"] += n_launch
         t["ms"] += ms
         t["paced_ms"] += paced
@@ -3741,14 +3888,18 @@ def h_proof_totals(log_calls, imad_rate, path: str, counts, reset_counts):
         log(f"[{path} warm proof] {name}: {t['launches']} launches, kernel "
             f"{t['ms']:.4f} ms in all ({t['paced_ms']:.4f} ms paced by the "
             f"host), bound {t['bound_ms']:.4f} ms "
-            f"({100 * t['bound_ms'] / max(t['ms'], 1e-9):.1f}% of the time), "
-            f"{t['ops_needed']} Fr products")
+            f"({100 * t['bound_ms'] / max(t['ms'], 1e-9):.1f}% of the time"
+            + (f"; a product a term {t['bound_ms_product_a_term']:.4f} ms"
+               if "bound_ms_product_a_term" in t else "")
+            + f"), {t['ops_needed']} Fr products")
     return tot
 
 
-def h_kernel_entries(rows, per_proof, launches, batch_launches, err):
+def h_kernel_entries(rows, per_proof, launches, batch_launches,
+                     mesh_launches, err):
     """The K0 / K4 / K5 entries of the kernels line: each kernel's largest
-    call of phase 4's warm chacha20 proof, with its launches there, and
+    call of phase 4's warm chacha20 proof, with its launches there, its
+    launches in phase 13's D = 4 mesh proof and phase 14's batches, and
     the per-proof totals of every recorded path."""
     entries = []
     for name in H_NAMES:
@@ -3763,9 +3914,13 @@ def h_kernel_entries(rows, per_proof, launches, batch_launches, err):
             "library_ms": None, "path": "chacha20",
             "shape": f"{main['variant']} {main['shape']}",
             "launches_batch4": {a: n[name] for a, n in batch_launches.items()},
+            "launches_mesh4": mesh_launches[name],
             "per_proof": {p: t[name] for p, t in per_proof.items()
                           if name in t},
             "variants": mine})
+        if name == "sparse_matvec":
+            entries[-1]["bound_ms_product_a_term"] = \
+                main["bound_ms_product_a_term"]
     return entries
 
 
@@ -4080,7 +4235,8 @@ def main(argv) -> int:
     # ---- 13. the multi-device layer: meshes of shards on the card, two
     # processes, the port's tools
     t = time.time()
-    mesh_launches = drive_mesh(api, reset_counts, counts)
+    rec_mesh = Recorder()
+    mesh_launches = drive_mesh(api, reset_counts, counts, rec_mesh)
     log(f"phase 13 added {time.time() - t:.2f} s")
 
     # ---- 14. the batched Groth16 path: k proofs in one pass
@@ -4108,7 +4264,8 @@ def main(argv) -> int:
     for path, rec in (("chacha20", rec_chacha), ("aes-128-ctr", rec_aes),
                       ("chacha20-toprf", rec_toprf),
                       ("chacha20 k=4", rec_batch["chacha20"]),
-                      ("aes-128-ctr k=4", rec_batch["aes-128-ctr"])):
+                      ("aes-128-ctr k=4", rec_batch["aes-128-ctr"]),
+                      ("chacha20 mesh D=4", rec_mesh)):
         h_rows += time_h_kernels(rec.h_calls, imad_rate, path)
         h_per_proof[path] = h_proof_totals(rec.h_log, imad_rate, path,
                                            counts, reset_counts)
@@ -4158,7 +4315,8 @@ def main(argv) -> int:
              launches_ladder_branch=ladder_launches["ladder"],
              launches_mesh4_ladder_branch=mesh_launches["ladder"]["ladder"]),
     ] + stark_kernel_entries(stark_rows, stark_per_proof, stark_launches, err)
-      + h_kernel_entries(h_rows, h_per_proof, launches, batch_launches, err)}),
+      + h_kernel_entries(h_rows, h_per_proof, launches, batch_launches,
+                         mesh_launches["chacha20"], err)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

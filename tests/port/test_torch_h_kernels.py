@@ -68,6 +68,21 @@ def _j(x):
     return jnp.asarray(np.asarray(x).astype(np.uint32))
 
 
+def _term_coeffs(csr) -> list:
+    """Each K5 term's coefficient as the kernel reads it, canonical ints
+    mod r: its kind, its value and the wide table decoded on the host."""
+    kinds = (csr.terms[:, 0].long() & 0xFFFFFFFF) >> h_kernels.TERM_KIND_SHIFT
+    values = csr.terms[:, 1].long() & 0xFFFFFFFF
+    wide = [sum(int(limb) << (16 * i) for i, limb in enumerate(w))
+            for w in Fr.from_mont(h_kernels.unpack_words(csr.wide)).T.tolist()]
+    out = []
+    for kd, v in zip(kinds.tolist(), values.tolist()):
+        c = wide[v] if kd == h_kernels.TERM_WIDE else v
+        neg = kd in (h_kernels.TERM_MINUS_ONE, h_kernels.TERM_MINUS_SMALL)
+        out.append((Fr.p - c) % Fr.p if neg else c % Fr.p)
+    return out
+
+
 def _eq(ref, got):
     np.testing.assert_array_equal(np.asarray(ref).astype(np.int64),
                                   got.numpy().astype(np.int64))
@@ -91,7 +106,10 @@ def test_csr_row_pointers_match_coo(case):
         at += rows.size
         assert int(ptr[(m + 1) * N]) == at
     assert csr.width == int(max(np.asarray(c).max() for _, c, _ in jmats)) + 1
-    assert torch.equal(csr.coeff_words, h_kernels.pack_words(csr.coeffs))
+    want = [Fr.from_mont(csr.coeffs[:, t:t + 1]) for t in range(at)]
+    want = [sum(int(limb) << (16 * i) for i, limb in enumerate(w[:, 0]))
+            for w in want]
+    assert _term_coeffs(csr) == want
 
 
 def test_csr_rejects_unordered_and_out_of_range_rows():
@@ -137,7 +155,8 @@ def test_sparse_matvec_plain_vs_reference(case):
     """K5's plain version over the stacked CSR equals the reference's
     _matvec of each matrix for each proof."""
     jstub, jmats, _, csr, z = case
-    got = h_kernels.sparse_matvec_plain(torch.from_numpy(z), csr)
+    got = h_kernels.sparse_matvec_plain(h_kernels.pack_z(torch.from_numpy(z)),
+                                        csr)
     assert got.shape == (Fr.L, 3, K, N) and got.dtype == torch.int32
     for m, mat in enumerate(jmats):
         for j in range(K):
@@ -210,3 +229,90 @@ def test_tile_limit_matches_source():
     m = re.search(r"constexpr int kNttMaxLogTile = (\d+);", src)
     assert m and int(m.group(1)) == h_kernels.MAX_LOG_TILE
     assert 1 <= h_kernels.LOG_TILE <= h_kernels.MAX_LOG_TILE
+
+
+# coefficients of every K5 class and its edges: +-1, zero, +-c for c < 2^32
+# (2^32 - 1 the largest), the smallest wide ones (2^32, r - 2^32), +-2^40
+EDGE_COEFFS = [1, Fr.p - 1, 0, 7, Fr.p - 7, (1 << 32) - 1,
+               Fr.p - ((1 << 32) - 1), 1 << 32, Fr.p - (1 << 32), 1 << 40,
+               Fr.p - (1 << 40)]
+
+
+def test_csr_bins_and_coefficient_classes():
+    """CSR.stack on the host: every stacked row lies in exactly one bin,
+    by its length (empty rows and rows of up to SHORT_ROW terms a thread's,
+    up to WARP_ROW a warp's, longer ones a block's), each bin in row order;
+    every coefficient's kind and value (and the wide table) reproduce it
+    mod r, at every class edge and on random values."""
+    rng = np.random.default_rng(1818)
+    S, W = h_kernels.SHORT_ROW, h_kernels.WARP_ROW
+    n = 8
+    lengths = [[0, 1, S, S + 1, W, W + 1, 3, 0], [2, 0, 0, S + 1, 1, 0, 0, 5]]
+    mats, want = [], []
+    for counts in lengths:
+        rows = np.repeat(np.arange(n), counts)
+        vals = [EDGE_COEFFS[t % len(EDGE_COEFFS)] for t in range(rows.size)]
+        vals[::5] = _rand_fr(rng, len(vals[::5]))
+        want += vals
+        mats.append((torch.from_numpy(rows),
+                     torch.from_numpy(rng.integers(0, 40, rows.size)),
+                     Fr.to_device(vals)))
+    csr = h_kernels.CSR.stack(mats, n)
+    counts = np.concatenate(lengths)
+    short = np.flatnonzero(counts <= S)
+    warp = np.flatnonzero((counts > S) & (counts <= W))
+    block = np.flatnonzero(counts > W)
+    assert csr.bins == (short.size, warp.size, block.size)
+    np.testing.assert_array_equal(csr.bin_rows.numpy(),
+                                  np.concatenate([short, warp, block]))
+    assert _term_coeffs(csr) == want
+    kinds = (csr.terms[:, 0].long() & 0xFFFFFFFF) >> h_kernels.TERM_KIND_SHIFT
+    assert sorted(set(kinds.tolist())) == list(range(5))
+    np.testing.assert_array_equal(
+        (csr.terms[:, 0].long() & ((1 << h_kernels.TERM_KIND_SHIFT) - 1))
+        .numpy(), csr.cols.numpy())
+
+
+@pytest.mark.parametrize("log_n, rows, want", [
+    (16, 3, 9), (16, 1, 8), (16, 12, 10), (17, 3, 10), (18, 3, 10),
+    (18, 12, 10), (15, 3, 8), (14, 3, 7)])
+def test_pick_log_tile(log_n, rows, want):
+    """K4's tile from the grid at the paths' shapes (the coset pass over 3k
+    rows, the way back over k, a mesh block's three rows of 2^14-2^15): the
+    largest tile up to 2^LOG_TILE whose launch has MIN_BLOCKS blocks, and
+    never fewer stages a tile than two launches a direction need."""
+    t = h_kernels.pick_log_tile(log_n, rows)
+    assert t == want
+    assert rows << (log_n - t) >= h_kernels.MIN_BLOCKS or \
+        t == (log_n + 1) // 2
+    plan = h_kernels.ntt_plan(log_n, rows=rows)
+    assert len(plan) == 2 and plan == h_kernels.ntt_plan(log_n, t)
+
+
+def test_pack_z_round_trip(case):
+    """pack_z: [16, k, m_pad] limbs -> [k, m_pad, 8] words, element after
+    element; unpack_words gives the limbs back."""
+    z = torch.from_numpy(case[4])
+    words = h_kernels.pack_z(z)
+    assert words.shape == (K, M_PAD, 8) and words.dtype == torch.int32
+    assert torch.equal(words[1, 2], h_kernels.pack_words(z[:, 1, 2:3])[0])
+    assert torch.equal(h_kernels.unpack_words(words), z)
+
+
+@pytest.mark.parametrize("enum", ["TermKind", "K0Mode"])
+def test_kernel_enums_match_source(enum):
+    """The wrapper's copies of K5's term kinds (and where they sit in a
+    term, kTermKindShift) and of K0's modes are the kernel's own: kTermOne
+    is TERM_ONE, kDifHalf is DIF_HALF, ..."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(h_kernels.__file__), "..", "csrc",
+                            "h_kernels.cu")).read()
+    body = re.search(rf"enum {enum} \{{([^}}]*)\}}", src).group(1)
+    pairs = re.findall(r"k(\w+) = (\d+)", body)
+    assert len(pairs) == 5
+    for name, value in pairs:
+        py = re.sub(r"(?<!^)(?=[A-Z])", "_", name).upper()
+        assert getattr(h_kernels, py) == int(value), py
+    m = re.search(r"constexpr int kTermKindShift = (\d+);", src)
+    assert m and int(m.group(1)) == h_kernels.TERM_KIND_SHIFT

@@ -32,6 +32,7 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -821,8 +822,10 @@ def test_k0_emulated(h_emu):
 
 def test_k5_emulated(h_emu):
     """K5 over three stacked matrices of 200 rows (empty rows, a row of 300
-    terms, repeated columns) at k = 2 proofs: 1,200 (row, proof) threads,
-    a ragged last block; equal to sparse_matvec_plain, one launch."""
+    terms, repeated columns; random, so wide, coefficients) at k = 2
+    proofs: the short bin's (row, proof) threads with a ragged last block,
+    the warp bin's 300-term rows; equal to sparse_matvec_plain, one
+    launch."""
     rng = np.random.default_rng(5)
     n, m_pad, k = 200, 40, 2
     mats = []
@@ -835,7 +838,7 @@ def test_k5_emulated(h_emu):
         mats.append((torch.from_numpy(rows), torch.from_numpy(cols),
                      _fr_limbs(rng, (rows.size,))))
     csr = h_kernels.CSR.stack(mats, n)
-    z = _fr_limbs(rng, (k, m_pad))
+    z = h_kernels.pack_z(_fr_limbs(rng, (k, m_pad)))
     before = h_emu.LAUNCHES["sparse_matvec"]
     got = h_emu._launch_sparse_matvec(z, csr)
     assert got.shape == (Fr.L, 3, k, n)
@@ -877,3 +880,122 @@ def test_k4_emulated(h_emu, log_n):
         got = h_emu.ntt(x, tw_inv, tw_fwd, True, True, words["ninv_shift"])
         assert torch.equal(got, ctx._transform_plain(x, True, True,
                                                      "ninv_shift"))
+
+
+# coefficients of every K5 class and its edges (test_torch_h_kernels.py's)
+K5_EDGES = [1, Fr.p - 1, 0, 7, Fr.p - 7, (1 << 32) - 1, Fr.p - ((1 << 32) - 1),
+            1 << 32, Fr.p - (1 << 32), 1 << 40, Fr.p - (1 << 40)]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_k5_bins_emulated(h_emu, k):
+    """K5's three bins and every coefficient class in one launch, at k = 1
+    and 3: rows of 0-16 terms (a thread's), 17 (just over SHORT_ROW) and 40
+    (a warp's), 1,025 (just over WARP_ROW: a block's), a short and a warp
+    row whose terms are all -1, coefficients cycling through +-1, 0, +-7,
+    +-(2^32 - 1), +-2^32, +-2^40 and random ones, z with 0, 1 and r - 1;
+    equal to sparse_matvec_plain limb for limb."""
+    rng = np.random.default_rng(31 + k)
+    n, m_pad = 24, 50
+    S, W = h_kernels.SHORT_ROW, h_kernels.WARP_ROW
+    mats = []
+    for m in range(3):
+        counts = rng.integers(0, S + 1, n)
+        counts[[2, 5, 9, 11, 13]] = [0, S + 1, 40, W + 1 if m == 1 else 3, 5]
+        counts[20 + m] = 20                     # all -1, a warp's
+        rows = np.repeat(np.arange(n), counts)
+        vals = [K5_EDGES[t % len(K5_EDGES)] for t in range(rows.size)]
+        for t in range(0, rows.size, 7):
+            vals[t] = int.from_bytes(rng.bytes(32), "little") % Fr.p
+        for r in (13, 20 + m):
+            at = int(counts[:r].sum())
+            vals[at:at + int(counts[r])] = [Fr.p - 1] * int(counts[r])
+        mats.append((torch.from_numpy(rows),
+                     torch.from_numpy(rng.integers(0, m_pad, rows.size)),
+                     Fr.to_device(vals)))
+    csr = h_kernels.CSR.stack(mats, n)
+    assert all(b > 0 for b in csr.bins)
+    z = h_kernels.pack_z(_fr_limbs(rng, (k, m_pad)))
+    before = h_emu.LAUNCHES["sparse_matvec"]
+    got = h_emu._launch_sparse_matvec(z, csr)
+    assert got.shape == (Fr.L, 3, k, n)
+    assert torch.equal(got, h_kernels.sparse_matvec_plain(z, csr))
+    assert h_emu.LAUNCHES["sparse_matvec"] == before + 1
+
+
+@pytest.mark.parametrize("dif", [True, False], ids=["DIF", "DIT"])
+def test_k0_cross_stage_emulated(h_emu, dif):
+    """K0's two cross-stage modes, both halves, over [16, 3, 77] blocks (a
+    ragged last block of 128 threads; the twiddle of element i at (t0 + i)
+    stride of a 2^9-point table, the same for the three rows), and its pack
+    mode over [16, 2, 77]: equal to cross_stage_plain / pack_z_plain."""
+    rng = np.random.default_rng(41 + dif)
+    ctx = NTTContext(Fr, 1 << 9, device="cpu")
+    tw_inv, tw_fwd, _ = ctx._kernel_tables()
+    x, other = _fr_limbs(rng, (3, 77)), _fr_limbs(rng, (3, 77))
+    for v_half, t0, stride in ((False, 0, 2), (True, 50, 2), (True, 3, 3)):
+        tw = tw_inv if dif else tw_fwd
+        args = (x, other, tw, t0, stride, dif, v_half)
+        assert torch.equal(h_emu.cross_stage(*args),
+                           h_kernels.cross_stage_plain(*args))
+    z = _fr_limbs(rng, (2, 77))
+    assert torch.equal(h_emu.pack_z(z), h_kernels.pack_z_plain(z))
+
+
+@pytest.fixture
+def h_card(h_emu, monkeypatch):
+    """Every H wrapper taking its kernel, emulated, on CPU tensors."""
+    monkeypatch.setattr(h_kernels, "_on_card", lambda t: True)
+    return h_kernels
+
+
+@pytest.mark.parametrize("log_n", [8, 10])
+def test_k4_plan_by_grid_emulated(h_card, log_n):
+    """K4 in the tile ntt_plan picks from the grid (two launches a
+    direction) over one and three rows of 2^8 and 2^10: every transform
+    form equal to NTTContext's plain version."""
+    ctx = NTTContext(Fr, 1 << log_n, device="cpu")
+    for rows in (1, 3):
+        x = _fr_limbs(np.random.default_rng(log_n + rows), (rows, 1 << log_n))
+        assert len(h_kernels.ntt_plan(log_n, rows=rows)) == 2
+        for name, (dif, dit, scale) in NTT_FORMS.items():
+            before = h_card.LAUNCHES["ntt_group"]
+            got = ctx._transform(x, dif, dit, scale)
+            assert h_card.LAUNCHES["ntt_group"] - before == \
+                (3 if dif and dit else 2), name
+            assert torch.equal(got, ctx._transform_plain(x, dif, dit, scale)), name
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_h_emulated(h_card, monkeypatch, D):
+    """ProverContext's sharded H on a mesh of D shards (the CPU's, every
+    wrapper taking its emulated kernel): the row slices through K5, the
+    exchanged stages through K0's cross-stage modes, each block's local
+    stages through K4 over the C-point tables, the quotient through K0;
+    equal to the one-device plain H limb for limb, and launching each."""
+    from zksc_tpu_torch.groth16.prove import ProverContext
+    from zksc_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(50 + D)
+    n, m_pad = 64, 30
+    mats = []
+    for _ in range(3):
+        counts = rng.integers(0, 4, n)
+        counts[7] = 25
+        rows = np.repeat(np.arange(n), counts)
+        vals = [K5_EDGES[t % len(K5_EDGES)] for t in range(rows.size)]
+        mats.append((torch.from_numpy(rows),
+                     torch.from_numpy(rng.integers(0, m_pad, rows.size)),
+                     Fr.to_device(vals)))
+    ntt = NTTContext(Fr, n, device="cpu")
+    stub = types.SimpleNamespace(ntt=ntt, _mats=mats,
+                                 _csr=h_kernels.CSR.stack(mats, n),
+                                 _zinv=pow(ntt.z_coset_int, -1, Fr.p),
+                                 device=torch.device("cpu"))
+    z = _fr_limbs(rng, (1, m_pad))
+    monkeypatch.setattr(h_kernels, "_on_card", lambda t: False)
+    want = ProverContext._h_pipeline_batch(stub, z)[:, 0]
+    monkeypatch.setattr(h_kernels, "_on_card", lambda t: True)
+    h_sharded = ProverContext._build_sharded_h(stub, make_mesh(D, ["cpu"]))
+    h_card.reset_launch_counts()
+    assert torch.equal(h_sharded(z[:, 0]), want)
+    assert all(v > 0 for v in h_card.LAUNCHES.values()), h_card.LAUNCHES

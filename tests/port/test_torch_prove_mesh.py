@@ -8,8 +8,9 @@ package from the port's files.
 
 - the sharded window sums (ops/msm.py:_window_sums_sharded, D = 4) over
   G1 and G2 equal the host oracle's MSM (curve/bn254_host.py);
-- the sharded H limbs (D = 8) equal the port's one-device compute_h_batch
-  and the JAX package's one-device quotient (its _h_core, which
+- the sharded H limbs (D = 2, 4, 8: each shard's row slice of the
+  mat-vec, the C-point local stages) equal the port's one-device
+  compute_h_batch and the JAX package's one-device quotient (its _h_core, which
   compute_h_batch vmaps, run eagerly: ~60 s of XLA:CPU against ~95 s for
   the vmapped program);
 - a force_pippenger proof on a D = 8 mesh and a ladder-branch proof on a
@@ -89,24 +90,49 @@ def test_window_sums_sharded_match_host(g2):
     assert got == msm.msm_pippenger(fops, P, limbs, n_bits)   # one device
 
 
-def test_sharded_h_equals_jax_and_one_device(toy):
+@pytest.fixture(scope="module")
+def jax_h(toy):
+    """(z_mont of the toy witness, the JAX package's one-device quotient of
+    it, the port's one-device H): the reference every sharded H is held
+    to."""
     cs, pk, jcs, jpk, _, wit = toy
     one = ProverContext(cs, pk, device="cpu")
-    sharded = ProverContext(cs, pk, mesh=make_mesh(8, ["cpu"]))
-    assert sharded._h_sharded is not None and sharded.device.type == "cpu"
     z_mont, _, _ = one._witnesses_to_device([wit])
-    h8 = sharded.compute_h_batch(z_mont)
-    assert torch.equal(h8, one.compute_h_batch(z_mont))
     jctx = JProverContext(jcs, jpk)
     jz, _, _ = jctx._witnesses_to_device([wit])
     np.testing.assert_array_equal(np.asarray(jz).astype(np.int64),
                                   z_mont.numpy().astype(np.int64))
     jh = np.asarray(jctx._h_core(jz[:, 0], jctx._mats))
+    return z_mont, jh, one.compute_h_batch(z_mont)
+
+
+def test_sharded_h_equals_jax_and_one_device(toy, jax_h):
+    cs, pk = toy[0], toy[1]
+    z_mont, jh, h1 = jax_h
+    sharded = ProverContext(cs, pk, mesh=make_mesh(8, ["cpu"]))
+    assert sharded._h_sharded is not None and sharded.device.type == "cpu"
+    h8 = sharded.compute_h_batch(z_mont)
+    assert torch.equal(h8, h1)
     np.testing.assert_array_equal(jh.astype(np.int64),
                                   h8[:, 0].numpy().astype(np.int64))
     # a domain that does not tile the mesh: no sharded quotient
     assert ProverContext(cs, pk, mesh=make_mesh(64, ["cpu"]))._h_sharded \
         is None
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_h_row_slices_match_jax(toy, jax_h, D):
+    """At D = 2 and 4 each shard's mat-vec takes the CSR slice of its own
+    rows of A, B and C (no partial sums, no reduce-scatter) and the local
+    stages run the C-point transform: the H limbs still equal the JAX
+    package's one-device quotient and the port's one-device H."""
+    cs, pk = toy[0], toy[1]
+    z_mont, jh, h1 = jax_h
+    ctx = ProverContext(cs, pk, mesh=make_mesh(D, ["cpu"]))
+    h = ctx.compute_h_batch(z_mont)
+    assert torch.equal(h, h1)
+    np.testing.assert_array_equal(jh.astype(np.int64),
+                                  h[:, 0].numpy().astype(np.int64))
 
 
 @pytest.mark.parametrize("D,force", [(8, True), (4, False)],

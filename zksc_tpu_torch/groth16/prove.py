@@ -16,10 +16,11 @@ Pipeline (the JAX package's ``groth16/prove.py``):
   4. final blinding combine (r, s) on the host — a handful of point ops.
 
 With a mesh (parallel/mesh.py), the quotient runs sharded
-(_build_sharded_h: the block-sharded mat-vec, a reduce-scatter and
-ops/ntt_sharded.py), every bucket MSM splits its points over the shards,
-and the ladders run one K3 per shard over its lanes; the partial sums are
-added on the host, so the proof equals the one-device proof.
+(_build_sharded_h: each shard's row slice of the mat-vec and
+ops/ntt_sharded.py, on K0 / K4 / K5 on the GPU), every bucket MSM splits
+its points over the shards, and the ladders run one K3 per shard over its
+lanes; the partial sums are added on the host, so the proof equals the
+one-device proof.
 """
 from __future__ import annotations
 
@@ -132,15 +133,18 @@ class ProverContext:
 
     def _build_sharded_h(self, mesh):
         """Mesh-sharded quotient pipeline, the JAX package's
-        _build_sharded_h on the port's mesh:
+        _build_sharded_h on the port's mesh, shard d holding lanes
+        [d C, (d + 1) C) of the domain:
 
-        - sparse A/B/C eval: the COO entries block-sharded over the shards
-          (padded with inert zero-coefficient entries on row 0), each shard
-          segment-sums its block into full rows (index_add_), then a
-          reduce-scatter: the sum over shards of lanes [d*C, (d+1)*C)
-          lands on shard d, which normalises, reduces and returns to
-          Montgomery form;
-        - NTTs: ops/ntt_sharded.ShardedNTT.
+        - sparse A/B/C eval: shard d takes the CSR slice of its own rows of
+          A, B and C (three stacked matrices of C rows), so one mat-vec
+          (K5 on a CUDA block) writes its block of A z, B z, C z. The
+          reference shards the nonzeros and reduce-scatters the partial
+          row sums; the canonical sums mod r are the same. The CPU path
+          takes the row slice too.
+        - NTTs: ops/ntt_sharded.ShardedNTT, the coset pass as one transform
+          over the block's three rows, the way back with from_mont folded
+          in; the quotient of each block (K0).
 
         Equal to the one-device _h_core limb for limb. Returns None when
         the domain does not tile the mesh."""
@@ -152,48 +156,22 @@ class ProverContext:
             return None
         sntt = ShardedNTT(self.ntt, mesh)
         C = n // D
-        pad = torch.nn.functional.pad
-        shards = []
-        for rows, cols, coeffs in self._mats:
-            npad = (-int(rows.shape[0])) % D
-            rows, cols, coeffs = (pad(rows, (0, npad)), pad(cols, (0, npad)),
-                                  pad(coeffs, (0, npad)))
-            E = int(rows.shape[0]) // D
-            shards.append([(rows[e * E:(e + 1) * E].to(dev),
-                            cols[e * E:(e + 1) * E].to(dev),
-                            coeffs[:, e * E:(e + 1) * E].to(dev))
-                           for e, dev in enumerate(mesh.devices)])
-        zinv = replicate(Fr.broadcast_const(self._zinv, (1,),
-                                            device=self.device), mesh)
-
-        def matvec(mat_shards, z_blocks):
-            partial = []
-            for (rows, cols, coeffs), z in zip(mat_shards, z_blocks):
-                prod = Fr.mont_mul(z[:, cols], coeffs)
-                sums = torch.zeros((Fr.L, n), dtype=torch.int64,
-                                   device=z.device)
-                sums.index_add_(1, rows, prod.to(torch.int64))
-                partial.append(sums)
-            out = []
-            for d, dev in enumerate(mesh.devices):
-                acc = partial[0][:, d * C:(d + 1) * C].to(dev)
-                for e in range(1, D):
-                    acc = acc + partial[e][:, d * C:(d + 1) * C].to(dev)
-                norm = Fr.normalize_u32_limbs([acc[j] for j in range(Fr.L)])
-                out.append(Fr.to_mont(Fr.mont_reduce_wide(norm)))
-            return out
+        csrs = []
+        for d, dev in enumerate(mesh.devices):
+            part = []
+            for rows, cols, coeffs in self._mats:
+                sel = (rows >= d * C) & (rows < (d + 1) * C)
+                part.append((rows[sel] - d * C, cols[sel], coeffs[:, sel]))
+            csrs.append(h_kernels.CSR.stack(part, C).to(dev))
 
         def h_core_sharded(z_mont_1):
-            z_blocks = replicate(z_mont_1, mesh)
-            a_cs, b_cs, c_cs = (
-                sntt.coset_evals_from_coeffs_br(
-                    sntt.dif_inverse(matvec(m, z_blocks)))
-                for m in shards)
-            h_cs = [Fr.mont_mul(Fr.sub(Fr.mont_mul(a, b), c), zi)
-                    for a, b, c, zi in zip(a_cs, b_cs, c_cs, zinv)]
-            h_br = sntt.coeffs_br_from_coset_evals(h_cs)
-            return sntt.sharding.gather([Fr.from_mont(h) for h in h_br],
-                                        device=self.device)
+            zw = h_kernels.pack_z(z_mont_1[:, None].contiguous())
+            abc = [h_kernels.sparse_matvec(z, csr).reshape(Fr.L, 3, C)
+                   for z, csr in zip(replicate(zw, mesh), csrs)]
+            cs = sntt.coset_evals_from_evals(abc)
+            h_cs = [h_kernels.quotient(c, self._zinv) for c in cs]
+            h_br = sntt.coeffs_br_from_coset_evals(h_cs, from_mont=True)
+            return sntt.sharding.gather(h_br, device=self.device)
 
         return h_core_sharded
 
@@ -251,13 +229,14 @@ class ProverContext:
         [L, k, n] plain limbs (bit-reversed coefficient order, matching the
         h_query layout). Every op takes the whole batch, so the number of
         ops launched does not depend on k (the JAX package vmaps its
-        one-proof program over the proof axis). On the GPU: one K5 launch
-        for A z, B z and C z, the three coset transforms as one K4 pass
-        over their 3k rows, one K0 quotient, one K4 pass back (from_mont
-        folded in)."""
+        one-proof program over the proof axis). On the GPU: one K0 launch
+        packs z, one K5 launch computes A z, B z and C z, the three coset
+        transforms are one K4 pass over their 3k rows, then one K0
+        quotient and one K4 pass back (from_mont folded in)."""
         L, k = z_mont.shape[0], z_mont.shape[1]
         n = self.ntt.n
-        abc = h_kernels.sparse_matvec(z_mont.contiguous(), self._csr)
+        abc = h_kernels.sparse_matvec(h_kernels.pack_z(z_mont.contiguous()),
+                                      self._csr)
         # abc: [L, 3, k, n], A z, B z, C z
         cs = self.ntt.coset_evals_from_evals(abc.reshape(L, 3 * k, n))
         h_cs = h_kernels.quotient(cs.reshape(L, 3, k, n), self._zinv)

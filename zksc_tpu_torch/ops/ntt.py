@@ -189,7 +189,7 @@ class NTTContext:
 
     def _transform(self, x, dif: bool, dit: bool, scale):
         """_transform_plain on a CPU tensor; K4 on a CUDA tensor."""
-        if x.device.type == "cpu":
+        if not h_kernels._on_card(x):
             return self._transform_plain(x, dif, dit, scale)
         tw_inv, tw_fwd, packed = self._kernel_tables()
         return h_kernels.ntt(x.contiguous(), tw_inv, tw_fwd, dif, dit,

@@ -9,13 +9,19 @@ DIT transforms is split into D contiguous blocks of C = n / D lanes.
     Inside one process the partner's block is copied to d's device; across
     processes it travels by torch.distributed point-to-point operations
     (batch_isend_irecv; gloo stages CUDA blocks through the host).
-  - the remaining stages are block-local and reuse NTTContext's stage
-    tables as they are: for spans <= C the n-point transform's twiddles
-    restricted to one block are the same powers.
+  - the remaining stages are block-local: for spans <= C the n-point
+    transform restricted to one block is the C-point transform with root
+    w^D, whose twiddles are the same powers.
 
-The results equal NTTContext's limb for limb: the same arithmetic in the
-same order, the DIF / DIT stages only grouped into exchanged and local
-parts. Plain PyTorch, as the one-device transforms are.
+A transform is NTTContext's (dif, dit, scale) form: the exchanged DIF
+stages, then on each block its local DIF stages, the product by the
+block's slice of the scale table and its local DIT stages, then the
+exchanged DIT stages. The results equal NTTContext's limb for limb: the
+same arithmetic, the DIF / DIT stages only grouped into exchanged and
+local parts. On CUDA blocks the local part is one K4 launch sequence a
+block (ops/h_kernels.ntt over the C-point tables: every D-th entry of the
+n-point ones) and each exchanged stage one K0 launch a block
+(h_kernels.cross_stage); on CPU blocks both run their plain versions.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import Mesh, lane_sharding
-from .ntt import NTTContext, dif_stages, dit_stages
+from . import h_kernels
+from .ntt import NTTContext, _lift, dif_stages, dit_stages
 
 
 def xor_exchange(blocks: list, mesh: Mesh, h: int) -> list:
@@ -53,11 +60,11 @@ def xor_exchange(blocks: list, mesh: Mesh, h: int) -> list:
 
 
 class ShardedNTT:
-    """Sharded transforms of an NTTContext over a 1-D mesh of D shards (D
-    a power of two dividing n). Transforms take and return lane-sharded
-    arrays: lists of D blocks [L, n / D] (None for other processes'
-    shards); `sharding` places and gathers them. The NTT's tables are
-    copied once to each device the mesh names."""
+    """Sharded transforms of an NTTContext over BN254 Fr on a 1-D mesh of D
+    shards (D a power of two dividing n). Transforms take and return
+    lane-sharded arrays: lists of D blocks [L, *rows, n / D] (None for
+    other processes' shards); `sharding` places and gathers them. The
+    NTT's tables are copied once to each device the mesh names."""
 
     def __init__(self, ntt: NTTContext, mesh: Mesh):
         self.ntt = ntt
@@ -71,20 +78,25 @@ class ShardedNTT:
         self._tables = {}
 
     def _tab(self, dev):
+        """The tables on `dev`: the n-point packed twiddles (the exchanged
+        stages), the C-point ones (every D-th entry) and the packed scale
+        tables for K4; the stage tables of spans <= C and the scale tables
+        in limbs for the plain version."""
         key = str(dev)
         if key not in self._tables:
-            nt = self.ntt
-            move = lambda t: {k: v.to(dev) for k, v in t.items()}
-            self._tables[key] = {
-                "inv": move(nt._tw_inv), "fwd": move(nt._tw_fwd),
-                "ninv": nt._ninv.to(dev),
-                "shift": nt.shift_pows_br.to(dev),
-                "shift_inv": nt.shift_inv_pows_br.to(dev)}
+            nt, D = self.ntt, self.D
+            tw_inv, tw_fwd, scales = nt._kernel_tables()
+            tab = {"inv": tw_inv.to(dev), "fwd": tw_fwd.to(dev),
+                   "inv_local": tw_inv[::D].contiguous().to(dev),
+                   "fwd_local": tw_fwd[::D].contiguous().to(dev),
+                   "scale_words": {k: v.to(dev) for k, v in scales.items()},
+                   "stages_inv": {k: v.to(dev) for k, v in
+                                  nt._tw_inv.items() if k <= self.C},
+                   "stages_fwd": {k: v.to(dev) for k, v in
+                                  nt._tw_fwd.items() if k <= self.C},
+                   "scales": {k: v.to(dev) for k, v in nt._scales.items()}}
+            self._tables[key] = tab
         return self._tables[key]
-
-    def _local(self, blocks, fn):
-        return [None if b is None else fn(d, b, self._tab(b.device))
-                for d, b in enumerate(blocks)]
 
     def _check(self, blocks):
         if len(blocks) != self.D:
@@ -93,66 +105,89 @@ class ShardedNTT:
             if blocks[d] is None or blocks[d].shape[-1] != self.C:
                 raise ValueError(f"shard {d} needs a block of {self.C} lanes")
 
-    def _cross_dif(self, blocks, length):
-        F, C = self.ntt.F, self.C
+    def _cross(self, blocks, length: int, dif: bool):
+        """The stage of span `length` > C: block d pairs with block d ^ h.
+        DIF: the v half's twiddles sit at the global offset of its block;
+        DIT: both halves use the twiddles of the v element's position."""
+        C = self.C
         h = (length // 2) // C
+        stride = self.ntt.n // length
         others = xor_exchange(blocks, self.mesh, h)
+        out = []
+        for d, x in enumerate(blocks):
+            if x is None:
+                out.append(None)
+                continue
+            v_half = bool(d & h)
+            dv = d if v_half or dif else d + h
+            t0 = max(((dv % (2 * h)) - h) * C, 0)    # DIF u half: unused
+            tw = self._tab(x.device)["inv" if dif else "fwd"]
+            out.append(h_kernels.cross_stage(x, others[d], tw, t0, stride,
+                                             dif, v_half))
+        return out
 
-        def stage(d, x, tab):
-            if d & h:       # v half: (u - v) * tw at the global offset t0
-                t0 = ((d % (2 * h)) - h) * C
-                tw = tab["inv"][length][:, t0:t0 + C]
-                return F.mont_mul(F.sub(others[d], x), tw)
-            return F.add(x, others[d])
-        return self._local(blocks, stage)
+    def _local_block(self, d: int, x, dif: bool, dit: bool, scale):
+        """The stages of spans <= C of block d (the C-point transform with
+        root w^D), the product by its slice of the scale table named
+        `scale` between them: K4 on a CUDA block, else _local_plain."""
+        if not h_kernels._on_card(x):
+            return self._local_plain(d, x, dif, dit, scale)
+        tab, C = self._tab(x.device), self.C
+        sc = None
+        if scale is not None:
+            sc = tab["scale_words"][scale]
+            sc = sc if sc.shape[0] == 1 else sc[d * C:(d + 1) * C]
+        return h_kernels.ntt(x.contiguous(), tab["inv_local"],
+                             tab["fwd_local"], dif, dit, sc)
 
-    def _cross_dit(self, blocks, length):
-        F, C = self.ntt.F, self.C
-        h = (length // 2) // C
-        others = xor_exchange(blocks, self.mesh, h)
+    def _local_plain(self, d: int, x, dif: bool, dit: bool, scale):
+        F, C, tab = self.ntt.F, self.C, self._tab(x.device)
+        if dif:
+            x = dif_stages(F, x, tab["stages_inv"], C)
+        if scale is not None:
+            s = tab["scales"][scale]
+            s = s if s.shape[-1] == 1 else s[:, d * C:(d + 1) * C]
+            x = F.mont_mul(x, _lift(s, x))
+        if dit:
+            x = dit_stages(F, x, tab["stages_fwd"], C)
+        return x
 
-        def stage(d, x, tab):
-            # both halves use the twiddle of the v element's position
-            is_v = bool(d & h)
-            u, v = (others[d], x) if is_v else (x, others[d])
-            dv = d if is_v else d + h
-            tv0 = ((dv % (2 * h)) - h) * C
-            vw = F.mont_mul(v, tab["fwd"][length][:, tv0:tv0 + C])
-            return F.sub(u, vw) if is_v else F.add(u, vw)
-        return self._local(blocks, stage)
+    def _transform(self, blocks, dif: bool, dit: bool, scale):
+        """NTTContext._transform over the blocks: the exchanged DIF stages,
+        each block's local stages and scale, the exchanged DIT stages."""
+        self._check(blocks)
+        x, n, C = blocks, self.ntt.n, self.C
+        length = n
+        while dif and length > C:
+            x = self._cross(x, length, True)
+            length //= 2
+        x = [None if b is None else self._local_block(d, b, dif, dit, scale)
+             for d, b in enumerate(x)]
+        length = 2 * C
+        while dit and length <= n:
+            x = self._cross(x, length, False)
+            length *= 2
+        return x
 
     def dif_inverse(self, evals: list) -> list:
         """evals (natural order) -> coeffs (bit-reversed), with the 1/n
         scale."""
-        self._check(evals)
-        F, C = self.ntt.F, self.C
-        x, length = evals, self.ntt.n
-        while length > C:
-            x = self._cross_dif(x, length)
-            length //= 2
-        return self._local(x, lambda d, b, tab: F.mont_mul(
-            dif_stages(F, b, tab["inv"], C), tab["ninv"]))
+        return self._transform(evals, True, False, "ninv")
 
     def dit_forward(self, coeffs_br: list) -> list:
         """coeffs (bit-reversed) -> evals (natural order)."""
-        self._check(coeffs_br)
-        F, C = self.ntt.F, self.C
-        x = self._local(coeffs_br,
-                        lambda d, b, tab: dit_stages(F, b, tab["fwd"], C))
-        length = 2 * C
-        while length <= self.ntt.n:
-            x = self._cross_dit(x, length)
-            length *= 2
-        return x
-
-    def _scale(self, blocks, name):
-        F, C = self.ntt.F, self.C
-        return self._local(blocks, lambda d, b, tab: F.mont_mul(
-            b, tab[name][:, d * C:(d + 1) * C]))
+        return self._transform(coeffs_br, False, True, None)
 
     def coset_evals_from_coeffs_br(self, coeffs_br: list) -> list:
-        self._check(coeffs_br)
-        return self.dit_forward(self._scale(coeffs_br, "shift"))
+        return self._transform(coeffs_br, False, True, "shift")
 
-    def coeffs_br_from_coset_evals(self, evals: list) -> list:
-        return self._scale(self.dif_inverse(evals), "shift_inv")
+    def coeffs_br_from_coset_evals(self, evals: list,
+                                   from_mont: bool = False) -> list:
+        """With from_mont, as plain residues (NTTContext's form)."""
+        return self._transform(evals, True, False, "ninv_shift_inv_plain"
+                               if from_mont else "ninv_shift_inv")
+
+    def coset_evals_from_evals(self, evals: list) -> list:
+        """evaluations on the domain (natural) -> on the coset (natural):
+        each block's local DIF, scale and DIT in one K4 call."""
+        return self._transform(evals, True, True, "ninv_shift")
