@@ -16,7 +16,9 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
   2. build: the nvcc builds of the CUDA kernels (csrc/ec_kernels.cu ->
      build/libzksc_ec.so, csrc/msm_kernels.cu -> build/libzksc_msm.so,
      csrc/stark_kernels.cu -> build/libzksc_stark.so, csrc/h_kernels.cu ->
-     build/libzksc_h.so, the nvcc processes started together) and the g++ build of the witness-tape library, with
+     build/libzksc_h.so, csrc/msm_glue.cu -> build/libzksc_msm_glue.so,
+     the nvcc processes started together) and the g++ build of the
+     witness-tape library, with
      their seconds; then, from ptxas, each kernel instance's registers,
      stack and spill bytes (K3: lane_kernel and split_kernel, each for Fp
      and Fp2h; K7a blake2s_kernel and blake2s_tree_kernel, K7b
@@ -24,7 +26,11 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      rev>, K7c composition_kernel<offset, points> and
      composition_finish_kernel, K7d aes_composition_kernel<offset, points>;
      the H kernels: K0 fr_elementwise_kernel<mode>, K4
-     ntt_group_kernel<dif, dit>, K5 sparse_matvec_kernel).
+     ntt_group_kernel<dif, dit>, K5 sparse_matvec_kernel; the MSM glue:
+     K6a msm_keys_kernel<key, shared>, K6b pack_points_kernel and
+     sorted_gather_kernel, K6c
+     scan_top_kernel<F>, K6d segment_prefix_kernel<F>
+     and bucket_kernel<F>).
   3. kernel vs plain at check sizes: K1 chunk_scan (G1, G2 x inclusive,
      exclusive, and the carry written for a next level; S=16, C=2,048 and
      an odd C=2,045) and K2 jac_add_n (G1, G2 x complete, incomplete;
@@ -51,6 +57,14 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      alone over 16,384 lanes (almost every bucket empty), G1 and G2,
      equal to the plain versions; and torch.sort(stable=True) over the 20
      x 131,072 keys of that shape gives the stable permutation.
+     The bucket MSM's glue K6a-d (check_glue_kernels) at the chacha20
+     proof's H MSM shape (G1, 65,536 points, 254-bit scalars, c = 13, W =
+     20: 1,310,720 sorted lanes, a top of 5,120 lanes, 163,840 bucket
+     lanes) and B2 MSM shape (G2, 40-bit scalars, c = 10, W = 4), with
+     identity and duplicated points and 0 / 1 scalars: each K6 call of one
+     _window_sums replayed through the kernel and its plain version (equal
+     limb for limb), timed beside its bound (K6a: torch.sort of its keys
+     beside it); the window sums equal those of the plain glue.
      The stark kernels, each equal to its plain version value for value:
      K7a Blake2s over 2,048 messages of 0, 1, 63, 64, 65 and 129,024 bytes
      read as the columns of a [words, 2,048] tensor, by the loose-message
@@ -93,7 +107,12 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      wires, domain 2^16); api.verify_proof must accept it and reject a
      ciphertext with one byte flipped; the launch counters of K1, K2 and
      the H kernels K0, K4, K5 (reset just before the second proof) must
-     be > 0.
+     be > 0, and those of K6a-d. Then the five MSMs of a warm chacha20
+     proof (tools/msm_stage_torch.py) replayed under
+     torch.cuda.set_sync_debug_mode("error"): no synchronising call, and
+     their kernel launch calls under torch.profiler at most
+     MSM_STAGE_MAX_LAUNCHES (300), printed beside the parent commit's
+     count (a recorded constant, MSM_STAGE_PARENT_LAUNCHES).
   6. keys made on the card, at full width: the aes-128-ctr and aes-256-ctr
      circuits compile to the digests of the committed manifests; keygen
      for aes-128-ctr (fixed --seed) into the port's key store; load_keys;
@@ -233,7 +252,12 @@ Phases, each printing its elapsed seconds on a flushed line of its own:
      in order: per kernel the launches, the summed ms, the summed bound and
      the adds whose Q is affine, which also go into the kernels line;
      likewise for the recorded chacha20-toprf proof of phase 8 and phase
-     14's warm k = 4 batches. The H kernels (K0, K4, K5) of the same
+     14's warm k = 4 batches. The K6 kernels of the same runs likewise:
+     each variant's largest call replayed through the kernel and its plain
+     version (equal), timed beside its bound (bytes; point adds x Fp
+     products x 258 IMAD), then every K6 call of each run summed per
+     kernel (launches, card ms, host-paced ms, bound). The H kernels (K0,
+     K4, K5) of the same
      chacha20, aes-128-ctr, chacha20-toprf and k = 4 runs and of phase
      13's D = 4 mesh proof: each variant's
      largest call replayed through the kernel and its plain version
@@ -974,18 +998,21 @@ def check_wide_windows(g1a, g2h, n=4096, n_top=16384):
         tag = "G2" if g2 else "G1"
         for label, lanes in (("20 windows", n), ("top window alone", n_top)):
             P = g2_lanes(g2h, 0, lanes) if g2 else g1_lanes(g1a, 0, lanes)
-            sp = Fr.to_device([rnd.randrange(host.R) for _ in range(lanes)],
-                              mont=False, device=P.x.device)
+            vals = [rnd.randrange(host.R) for _ in range(lanes)]
+            sp = Fr.to_device(vals, mont=False, device=P.x.device)
             rec = Recorder()
             with rec:
                 rec.window = True
                 if label == "20 windows":
                     msm.msm_pippenger_device(fops, P, sp, 254, c=c)
                 else:
-                    top = msm.scalars_to_digits(sp, c, W)[W - 1:][None]
-                    if int(top.max().item()) >= 1 << (254 - (W - 1) * c):
+                    # the top window's digits as the only window of
+                    # scalars shifted down by 19 windows
+                    top = [v >> ((W - 1) * c) for v in vals]
+                    if max(top) >= 1 << (254 - (W - 1) * c):
                         raise AssertionError("top window wider than 7 bits")
-                    msm._window_sums(fops, P, top, c, 1, lanes)
+                    msm._window_sums(fops, P, Fr.to_device(
+                        top, mont=False, device=P.x.device)[:, None, :], c, 1)
             t = time.time()
             n_calls = {"chunk_scan": 0, "jac_add_n": 0}
             for (name, _, _), f, args in rec.log:
@@ -1046,10 +1073,11 @@ class Recorder:
     for the Groth16 H kernels (`h_calls`, `h_log`): the h_kernels functions
     groth16/prove.py and ops/ntt_sharded.py call, NTTContext._transform
     and ShardedNTT._local_block (a mesh block's K4 call), on CUDA
-    tensors."""
+    tensors. Likewise for the bucket MSM's glue (`glue_calls`,
+    `glue_log`): the msm_glue wrappers ops/msm.py calls, K6a-d."""
 
     def __init__(self):
-        from zksc_tpu_torch.ops import ec_kernels, h_kernels, msm_kernels
+        from zksc_tpu_torch.ops import ec_kernels, h_kernels, msm_glue, msm_kernels
         from zksc_tpu_torch.ops.ntt import NTTContext
         from zksc_tpu_torch.ops.ntt_sharded import ShardedNTT
         self.mods = {"chunk_scan": ec_kernels, "jac_add_n": ec_kernels,
@@ -1060,6 +1088,10 @@ class Recorder:
                        "sparse_matvec": h_kernels, "_transform": NTTContext,
                        "_local_block": ShardedNTT}
         self.h_orig = {k: getattr(m, k) for k, m in self.h_mods.items()}
+        self.glue_mod = msm_glue
+        self.glue_orig = {k: getattr(msm_glue, k) for k in GLUE_WRAPPERS}
+        self.glue_calls = {}
+        self.glue_log = []
         self.calls = {}
         self.log = []
         self.h_calls = {}
@@ -1077,6 +1109,21 @@ class Recorder:
                     self.h_calls[key] = (args, x.numel())
                 if self.window:
                     self.h_log.append((key, args))
+            return fn(*args)
+        return call
+
+    def _glue_wrap(self, attr):
+        fn = self.glue_orig[attr]
+        name = GLUE_WRAPPERS[attr]
+
+        def call(*args):
+            key, size, dev = glue_variant(name, args)
+            if dev.type == "cuda":
+                prev = self.glue_calls.get(key)
+                if prev is None or size > prev[1]:
+                    self.glue_calls[key] = (args, size)
+                if self.window:
+                    self.glue_log.append((key, args))
             return fn(*args)
         return call
 
@@ -1110,6 +1157,8 @@ class Recorder:
             setattr(mod, name, wrap(name, flags[name]))
         for attr, mod in self.h_mods.items():
             setattr(mod, attr, self._h_wrap(attr))
+        for attr in GLUE_WRAPPERS:
+            setattr(self.glue_mod, attr, self._glue_wrap(attr))
         return self
 
     def __exit__(self, *exc):
@@ -1117,6 +1166,8 @@ class Recorder:
             setattr(mod, name, self.orig[name])
         for attr, mod in self.h_mods.items():
             setattr(mod, attr, self.h_orig[attr])
+        for attr, fn in self.glue_orig.items():
+            setattr(self.glue_mod, attr, fn)
 
 
 def kernel_fns(name):
@@ -1252,6 +1303,297 @@ def proof_totals(log_calls, imad_rate, path: str, counts, reset_counts):
     return tot
 
 
+# ------------------------------------------------------------- K6
+
+GLUE_NAMES = ("msm_keys", "sorted_gather", "scan_top", "bucket_boundaries")
+GLUE_SRC = "zksc_tpu_torch/csrc/msm_glue.cu"
+# the reference's XLA-fused code each K6 kernel replaces
+GLUE_REPLACES = {
+    "msm_keys": "zksc_tpu/ops/msm.py:67",          # + :214-221, segment_sum
+    "sorted_gather": "zksc_tpu/ops/msm.py:225",
+    "scan_top": "zksc_tpu/ops/msm.py:164",
+    "bucket_boundaries": "zksc_tpu/ops/msm.py:241",
+}
+# msm_glue's wrapper of each K6 kernel
+GLUE_WRAPPERS = {"keys": "msm_keys", "sorted_gather": "sorted_gather",
+                 "scan_top": "scan_top",
+                 "bucket_boundaries": "bucket_boundaries"}
+# the five MSMs of a warm chacha20 proof: their launch calls, at most, and
+# the parent commit's (14eab77: K1 / K2 and eager glue), a recorded
+# constant: measured by tools/msm_stage_torch.py on an H100 80GB HBM3 at
+# 700 W before K6 (PERF.md), not in the run that prints it
+MSM_STAGE_MAX_LAUNCHES = 300
+MSM_STAGE_PARENT_LAUNCHES = 1962
+
+
+def glue_fns(name):
+    """(kernel launch, plain version) of a K6 kernel."""
+    from zksc_tpu_torch.ops import msm_glue as g
+    return {"msm_keys": (g._launch_keys, g.keys_plain),
+            "sorted_gather": (g._launch_sorted_gather, g.sorted_gather_plain),
+            "scan_top": (g._launch_scan_top, g.scan_top_plain),
+            "bucket_boundaries": (g._launch_bucket_boundaries,
+                                  g.bucket_boundaries_plain)}[name]
+
+
+def _glue_g2(args) -> bool:
+    from zksc_tpu_torch.ops import ec
+    return isinstance(args[0], ec.Fp2Ops)
+
+
+def glue_variant(name, args):
+    """((name, variant), size, device) of one K6 call."""
+    from zksc_tpu_torch.ops import ec_kernels
+    if name == "msm_keys":
+        from zksc_tpu_torch.ops import msm_glue
+        sp, c, W = args
+        dt = msm_glue.key_dtype(sp.shape[1] * W, c)
+        # the keys it writes: the H MSM's (W = 20) outweighs the 40-bit ones
+        return ((name, f"{str(dt)[6:]} keys"), sp.shape[1] * W * sp.shape[2],
+                sp.device)
+    tag = "G2" if _glue_g2(args) else "G1"
+    if name == "scan_top":
+        fops, P, inclusive = args
+        return ((name, f"{tag} inclusive={inclusive}"),
+                ec_kernels._lanes(fops, P.x), P.x.device)
+    t = args[2]                                  # sidx, or cum
+    return (name, tag), t.numel(), t.device
+
+
+def glue_shape(name, args) -> str:
+    from zksc_tpu_torch.ops import ec_kernels
+    if name == "msm_keys":
+        sp, c, W = args
+        return f"c={c} W={W} k={sp.shape[1]} n={sp.shape[2]}"
+    if name == "sorted_gather":
+        return f"N={args[2].shape[0]} C0={args[4]}"
+    if name == "scan_top":
+        return f"T={ec_kernels._lanes(args[0], args[1].x)}"
+    _, levels, cum, c, n = args
+    return f"lanes={cum.numel()} levels={len(levels)} n={n}"
+
+
+def glue_bound_ms(name, args, imad_rate):
+    """(bound ms, by, point adds needed) of one K6 call: the bytes it must
+    move (each input it needs read once, each output written once) and
+    the point adds these inputs need (16 products a G1 add, 48 a G2 add:
+    the sums are Jacobian)."""
+    import torch
+    from zksc_tpu_torch.ops import ec_kernels, msm_glue
+    if name == "msm_keys":
+        sp, c, W = args
+        L, k, n = sp.shape
+        segs = k * W
+        kb = 4 if msm_glue.key_dtype(segs, c) == torch.int32 else 8
+        rows = min(L, -(-W * c // 16))         # the limb rows the windows read
+        nbytes = 4 * rows * k * n + kb * segs * n + 4 * (segs << c)
+        return (*_bound(0, nbytes, imad_rate), 0)
+    fops = args[0]
+    g2 = _glue_g2(args)
+    pt = 3 * (2 if g2 else 1) * 16 * 4
+    if name == "sorted_gather":
+        _, _, sidx, n, _ = args
+        N = sidx.shape[0]
+        return (*_bound(0, 8 * N + pt * (n + N), imad_rate), 0)
+    if name == "scan_top":
+        P = ec_kernels.folded(fops, args[1])
+        T = fops.lane_width(P.x)
+        adds = max(int(nonid(fops, P).sum().item()) - 1, 0)
+        return (*_bound(add_imad(g2, adds, 0), 2 * pt * T, imad_rate), adds)
+    _, levels, cum, c, n = args
+    segs, two_c = cum.shape
+    q = torch.arange(two_c, device=cum.device)
+    live = int(((cum > 0) & (q[None, :] != two_c - 1)).sum().item())
+    L = len(levels)
+    # a live bucket lane: L - 1 level offsets and the segment prefix; a
+    # segment prefix: L - 1 level offsets
+    adds = live * L + segs * (L - 1)
+    nbytes = 4 * cum.numel() + pt * (L * (live + segs) + cum.numel() + segs)
+    return (*_bound(add_imad(g2, adds, 0), nbytes, imad_rate), adds)
+
+
+def time_glue_kernels(calls, imad_rate, path: str):
+    """Phase 3 and 5: each K6 variant's largest call of one path replayed
+    through the kernel and its plain version (equal limb for limb), timed
+    (card-only and host-paced CUDA events) beside its bound; beside K6a,
+    torch.sort(stable=True) of its keys, the sort that follows it."""
+    import torch
+    rows = []
+    for key in sorted(calls, key=str):
+        args, _ = calls[key]
+        name = key[0]
+        kern, plain = glue_fns(name)
+        run = lambda: kern(*args)
+        shape = glue_shape(name, args)
+        ms, plain_ms, err = compare(f"{name} {key[1]} {shape}", run,
+                                    lambda: plain(*args), list)
+        paced = cuda_ms(run, reps=3, paced=True)
+        bound, by, adds = glue_bound_ms(name, args, imad_rate)
+        row = {"name": name, "path": path, "variant": key[1], "shape": shape,
+               "ms": ms, "paced_ms": paced, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "ops_needed": adds,
+               "max_abs_err": err}
+        extra = ""
+        if name == "msm_keys":
+            keys = run()[0]
+            row["sort_ms"] = cuda_ms(lambda: torch.sort(keys, stable=True),
+                                     reps=3)
+            extra = f", torch.sort of its keys {row['sort_ms']:.4f} ms"
+        log(f"[{path}] {name} {key[1]} {shape}: kernel {ms:.4f} ms "
+            f"({paced:.4f} ms paced by the host), plain {plain_ms:.2f} ms, "
+            f"bound {bound:.4f} ms ({by}, {adds} point adds){extra}, "
+            f"max_abs_err={err}")
+        rows.append(row)
+    return rows
+
+
+def glue_proof_totals(log_calls, imad_rate, path: str, counts, reset_counts):
+    """Phase 5: every K6 call of one warm proof (or batch), in order,
+    replayed through the kernel: per kernel the launches, the summed ms
+    (card-only and host-paced) and the summed bound."""
+    tot = {}
+    for key, args in log_calls:
+        name = key[0]
+        kern, _ = glue_fns(name)
+        run = lambda: kern(*args)
+        reset_counts()
+        run()
+        n_launch = counts()[name]
+        ms = cuda_ms(run, reps=2)
+        paced = cuda_ms(run, reps=2, paced=True)
+        bound, _, adds = glue_bound_ms(name, args, imad_rate)
+        t = tot.setdefault(name, {"launches": 0, "ms": 0.0, "paced_ms": 0.0,
+                                  "bound_ms": 0.0, "ops_needed": 0})
+        t["launches"] += n_launch
+        t["ms"] += ms
+        t["paced_ms"] += paced
+        t["bound_ms"] += bound
+        t["ops_needed"] += adds
+    for name, t in sorted(tot.items()):
+        log(f"[{path} warm proof] {name}: {t['launches']} launches, kernel "
+            f"{t['ms']:.4f} ms in all ({t['paced_ms']:.4f} ms paced by the "
+            f"host), bound {t['bound_ms']:.4f} ms "
+            f"({100 * t['bound_ms'] / max(t['ms'], 1e-9):.1f}% of the time), "
+            f"{t['ops_needed']} point adds")
+    return tot
+
+
+def glue_kernel_entries(rows, per_proof, launches, batch_launches,
+                        mesh_launches, err):
+    """The K6a-d entries of the kernels line: each kernel's largest call of
+    phase 4's warm chacha20 proof (K6a: torch.sort's time beside it), its
+    launches there, in phase 13's D = 4 mesh proof and phase 14's
+    batches, and the per-proof totals of every recorded path."""
+    entries = []
+    for name in GLUE_NAMES:
+        mine = [r for r in rows if r["name"] == name]
+        main = max((r for r in mine if r["path"] == "chacha20"),
+                   key=lambda r: r["bound_ms"])
+        entry = {
+            "name": name, "route": "cuda", "source": GLUE_SRC,
+            "replaces": GLUE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "path": "chacha20",
+            "shape": f"{main['variant']} {main['shape']}",
+            "launches_batch4": {a: n[name] for a, n in batch_launches.items()},
+            "launches_mesh4": mesh_launches[name],
+            "per_proof": {p: t[name] for p, t in per_proof.items()
+                          if name in t},
+            "variants": mine}
+        if "sort_ms" in main:
+            entry["sort_ms"] = main["sort_ms"]
+        entries.append(entry)
+    return entries
+
+
+def check_glue_kernels(g1a, g2h, imad_rate, n=1 << 16):
+    """Phase 3: K6a-d against their plain versions at the shapes of the
+    chacha20 proof's H MSM (G1, 254-bit scalars, c = 13, W = 20: N =
+    1,310,720 sorted lanes, a top of 5,120 lanes, 163,840 bucket lanes)
+    and B2 MSM (G2, 40-bit witness-like scalars, c = 10, W = 4: N =
+    262,144, a top of 1,024 lanes, 4,096 bucket lanes), over n = 65,536
+    points of the committed key taken cyclically (duplicated points) with
+    64 identity lanes: one _window_sums each on the card, its K6 calls
+    recorded and replayed through the kernel and its plain version (equal
+    limb for limb), timed beside their bounds; the window sums equal,
+    limb for limb, those of the plain glue (every K6 call on its plain
+    version, K1 and K2 on their kernels)."""
+    import random
+
+    from zksc_tpu_torch.curve import bn254_host as host
+    from zksc_tpu_torch.fields.limb import Fr
+    from zksc_tpu_torch.ops import ec, msm, msm_glue
+    from zksc_tpu_torch.ops.ec import JacPoint
+    rnd = random.Random(37)
+    rows = []
+    for label, g2, n_bits, c in (("chacha20 H", False, 254, 13),
+                                 ("chacha20 B2", True, 40, 10)):
+        t = time.time()
+        fops = ec.G2_OPS if g2 else ec.G1_OPS
+        P = g2_lanes(g2h, 0, n) if g2 else g1_lanes(g1a, 0, n)
+        z = P.z.clone()
+        z[:, :64] = 0
+        if g2:
+            z[:, n:n + 64] = 0
+        P = JacPoint(P.x, P.y, z)
+        if g2:
+            vals = [rnd.randrange(1 << n_bits) if rnd.random() < 0.1
+                    else rnd.randrange(2) for _ in range(n)]
+        else:
+            vals = [rnd.randrange(host.R) for _ in range(n)]
+        vals[:4] = [0, 1, 0, 1]
+        sp = Fr.to_device(vals, mont=False, device=P.x.device)[:, None, :]
+        W = -(-n_bits // c)
+        rec = Recorder()
+        with rec:
+            sums = msm._window_sums(fops, P, sp, c, W)
+        names = sorted({k[0] for k in rec.glue_calls})
+        if names != sorted(GLUE_NAMES):
+            raise AssertionError(f"{label}: K6 calls {names}")
+        rows += time_glue_kernels(rec.glue_calls, imad_rate,
+                                  f"phase 3 {label}")
+        saved = {a: getattr(msm_glue, a) for a in GLUE_WRAPPERS}
+        try:
+            for a in GLUE_WRAPPERS:
+                setattr(msm_glue, a, getattr(msm_glue, a + "_plain"))
+            plain = msm._window_sums(fops, P, sp, c, W)
+        finally:
+            for a, f in saved.items():
+                setattr(msm_glue, a, f)
+        if max_abs_diff(list(sums), list(plain)):
+            raise AssertionError(f"{label}: window sums != the plain glue's")
+        log(f"phase 3 K6 at the {label} MSM shape (n={n}, c={c}, W={W}): "
+            f"each kernel == plain, window sums == the plain glue's "
+            f"({time.time() - t:.2f} s)")
+    return max(r["max_abs_err"] for r in rows)
+
+
+def msm_stage_check(api):
+    """Phase 4: the five MSMs of a warm chacha20 proof replayed under
+    torch.cuda.set_sync_debug_mode("error") (tools/msm_stage_torch.py):
+    no synchronising call, and at most MSM_STAGE_MAX_LAUNCHES profiled
+    launch calls, printed beside the parent commit's recorded count."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import msm_stage_torch
+    t = time.time()
+    res = msm_stage_torch.measure(api, error=True)
+    log(f"phase 4 MSM stage (5 MSMs of a warm chacha20 proof, replayed): "
+        f"{res['launch_calls']} kernel launch calls (parent 14eab77, a "
+        f"recorded constant, not this run's: {MSM_STAGE_PARENT_LAUNCHES}; "
+        f"cap {MSM_STAGE_MAX_LAUNCHES}), "
+        f"{res['syncs']} synchronising calls under sync debug mode error, "
+        f"{res['stage_s']:.4f} s host clock, {res['card_ms_profiled']:.3f} "
+        f"card ms profiled; shapes {res['shapes']}; other warnings "
+        f"{res['other_warnings']} ({time.time() - t:.2f} s)")
+    if res["syncs"]:
+        raise AssertionError("phase 4: the MSM stage synchronised")
+    if res["launch_calls"] > MSM_STAGE_MAX_LAUNCHES:
+        raise AssertionError(f"phase 4: {res['launch_calls']} launch calls "
+                             f"in the MSM stage, over {MSM_STAGE_MAX_LAUNCHES}")
+    return res
+
+
 AES_SEED = 20240          # keygen --seed of phase 6 (not a secret key)
 
 
@@ -1333,7 +1675,7 @@ def drive_aes(api, reset_counts, counts, rec) -> dict:
     launches = counts()
     log(f"phase 6 launches over keygen, ceremony and both proofs: {launches}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for k in ("chunk_scan", "jac_add_n", "ladder") + H_NAMES:
+    for k in ("chunk_scan", "jac_add_n", "ladder") + H_NAMES + GLUE_NAMES:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the AES path")
     t = time.time()
@@ -1481,7 +1823,7 @@ def drive_toprf(api, alg: str, reset_counts, counts, rec) -> dict:
         f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
         f"{held / 2**30:.3f} GiB allocated before the proof (the key, and "
         f"earlier phases' recorded kernel inputs)")
-    for k in ("chunk_scan", "jac_add_n") + H_NAMES:
+    for k in ("chunk_scan", "jac_add_n") + H_NAMES + GLUE_NAMES:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the "
                                  f"{alg} path")
@@ -3222,7 +3564,7 @@ def drive_mesh(api, reset_counts, counts, rec) -> dict:
             f"launches {launches} ({time.time() - t:.2f} s with the context)")
         if not (same and ok and rejected):
             raise AssertionError(f"phase 13: the D = {D} proof failed")
-        for k in ("chunk_scan", "jac_add_n") + H_NAMES:
+        for k in ("chunk_scan", "jac_add_n") + H_NAMES + GLUE_NAMES:
             if launches[k] <= 0:
                 raise AssertionError(f"phase 13: {k} not launched at D = {D}")
         out["chacha20"] = launches
@@ -3416,7 +3758,7 @@ def prove_batches(api, alg, op, reqs, ks, rng, rec, reset_counts,
                 f"the {held / 2**30:.3f} GiB held before")
             if run == "warm":
                 launches = counts()
-        for name in ("chunk_scan", "jac_add_n") + H_NAMES:
+        for name in ("chunk_scan", "jac_add_n") + H_NAMES + GLUE_NAMES:
             if launches[name] <= 0:
                 raise AssertionError(f"phase 14: {name} was not launched by "
                                      f"the {alg} batch of {k}")
@@ -3432,7 +3774,8 @@ def prove_batches(api, alg, op, reqs, ks, rng, rec, reset_counts,
                                      "verified")
         log(f"phase 14 {alg} k={k}: {k} proofs verify, {k} tampered "
             f"ciphertexts rejected ({time.time() - t:.2f} s)")
-    return {n: launches[n] for n in ("chunk_scan", "jac_add_n") + H_NAMES}
+    return {n: launches[n] for n in ("chunk_scan", "jac_add_n") + H_NAMES
+            + GLUE_NAMES}
 
 
 def h_batches(api, alg, op, reqs, ks):
@@ -4088,7 +4431,7 @@ def main(argv) -> int:
     # ---- 2. build: every nvcc started together
     from zksc_tpu_torch.native import tape_lib
     from zksc_tpu_torch.ops import cuda_build, ec_kernels, h_kernels, msm_kernels
-    from zksc_tpu_torch.ops import stark_kernels
+    from zksc_tpu_torch.ops import msm_glue, stark_kernels
     t = time.time()
     nvcc = cuda_build.build(verbose=True)
     log(f"phase 2 build: nvcc " + ", ".join(
@@ -4108,10 +4451,12 @@ def main(argv) -> int:
         msm_kernels.reset_launch_counts()
         stark_kernels.reset_launch_counts()
         h_kernels.reset_launch_counts()
+        msm_glue.reset_launch_counts()
 
     def counts():
         return {**ec_kernels.LAUNCHES, **msm_kernels.LAUNCHES,
-                **stark_kernels.LAUNCHES, **h_kernels.LAUNCHES}
+                **stark_kernels.LAUNCHES, **h_kernels.LAUNCHES,
+                **msm_glue.LAUNCHES}
 
     from zksc_tpu_torch import api
     if "--toprf" in argv:
@@ -4125,6 +4470,8 @@ def main(argv) -> int:
         proof_totals(rec.log, imad_rate, alg, counts, reset_counts)
         time_h_kernels(rec.h_calls, imad_rate, alg)
         h_proof_totals(rec.h_log, imad_rate, alg, counts, reset_counts)
+        time_glue_kernels(rec.glue_calls, imad_rate, alg)
+        glue_proof_totals(rec.glue_log, imad_rate, alg, counts, reset_counts)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4135,6 +4482,7 @@ def main(argv) -> int:
     err = check_kernels(g1a, g1b, g2h, imad_rate)
     k3_err, k3_plain_ms = check_ladder(g1a, g2h, imad_rate)
     err = max(err, k3_err, check_wide_windows(g1a, g2h))
+    err = max(err, check_glue_kernels(g1a, g2h, imad_rate))
     check_stable_sort()
     err = max(err, check_stark_kernels(device, imad_rate))
     err = max(err, check_h_kernels(device, imad_rate))
@@ -4170,7 +4518,7 @@ def main(argv) -> int:
     launches = counts()
     stages = " ".join(f"{k}={v:.3f}" for k, v in op.timings.items())
     log(f"phase 4 proof 2: {prove_s:.3f} s ({stages}); launches {launches}")
-    for k in ("chunk_scan", "jac_add_n") + H_NAMES:
+    for k in ("chunk_scan", "jac_add_n") + H_NAMES + GLUE_NAMES:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     peak = torch.cuda.max_memory_allocated()
@@ -4184,6 +4532,7 @@ def main(argv) -> int:
     if api.verify_proof(env, bad, iv, device="cuda"):
         raise AssertionError("a tampered ciphertext verified")
     log("phase 4 tampered ciphertext rejected")
+    msm_stage_check(api)
 
     # ---- 6. aes-128-ctr: keys made on the card, ceremony, proof
     rec_aes = Recorder()
@@ -4270,6 +4619,15 @@ def main(argv) -> int:
         h_per_proof[path] = h_proof_totals(rec.h_log, imad_rate, path,
                                            counts, reset_counts)
         rec.h_calls, rec.h_log = {}, []
+    glue_rows, glue_per_proof = [], {}
+    for path, rec in (("chacha20", rec_chacha), ("aes-128-ctr", rec_aes),
+                      ("chacha20-toprf", rec_toprf),
+                      ("chacha20 k=4", rec_batch["chacha20"]),
+                      ("aes-128-ctr k=4", rec_batch["aes-128-ctr"])):
+        glue_rows += time_glue_kernels(rec.glue_calls, imad_rate, path)
+        glue_per_proof[path] = glue_proof_totals(rec.glue_log, imad_rate,
+                                                 path, counts, reset_counts)
+        rec.glue_calls, rec.glue_log = {}, []
     t = time.time()
     stark_rows, stark_per_proof = run_stark_phase5(stark_recs, imad_rate)
     log(f"phase 5 stark replays: {time.time() - t:.2f} s")
@@ -4277,7 +4635,8 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_proof(lambda: api.generate_proof("chacha20", key, ct, iv,
                                                  device="cuda", rng=rng))
-    err = max([err] + [r["max_abs_err"] for r in rows + stark_rows + h_rows])
+    err = max([err] + [r["max_abs_err"]
+                       for r in rows + stark_rows + h_rows + glue_rows])
 
     def head(name, replaces, source, path, variant, n_launch, plain_ms=None):
         r = next(r for r in rows if r["name"] == name and r["path"] == path
@@ -4301,7 +4660,7 @@ def main(argv) -> int:
              launches_batch4={a: n["chunk_scan"]
                               for a, n in batch_launches.items()}),
         dict(head("jac_add_n", "zksc_tpu/ops/pallas_ec.py:162", ec_src,
-                  "chacha20", "G1 complete=False", launches["jac_add_n"]),
+                  "chacha20", "G1 complete=True", launches["jac_add_n"]),
              launches_mesh4=mesh_launches["chacha20"]["jac_add_n"],
              launches_batch4={a: n["jac_add_n"]
                               for a, n in batch_launches.items()}),
@@ -4316,7 +4675,9 @@ def main(argv) -> int:
              launches_mesh4_ladder_branch=mesh_launches["ladder"]["ladder"]),
     ] + stark_kernel_entries(stark_rows, stark_per_proof, stark_launches, err)
       + h_kernel_entries(h_rows, h_per_proof, launches, batch_launches,
-                         mesh_launches["chacha20"], err)}),
+                         mesh_launches["chacha20"], err)
+      + glue_kernel_entries(glue_rows, glue_per_proof, launches,
+                            batch_launches, mesh_launches["chacha20"], err)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

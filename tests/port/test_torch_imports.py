@@ -23,7 +23,7 @@ def _port_sources():
     yield os.path.join(ROOT, "examples", "toprf_threshold_service_torch.py")
     for tool in ("artifacts_cli", "profile_prove", "bench_stark",
                  "stwo_crosscheck", "run_imported_r1cs_e2e",
-                 "gen_oneblock_artifacts"):
+                 "gen_oneblock_artifacts", "msm_stage"):
         yield os.path.join(ROOT, "tools", f"{tool}_torch.py")
     yield os.path.join(ROOT, "tests", "port", "torch_multihost_worker.py")
 
@@ -78,7 +78,8 @@ print(" ".join(mods))
         "interop.gnark_r1cs", "interop.gnark", "interop.snarkjs",
         "interop.circom_wasm", "interop.stwo_wasm")} <= set(mods)
     assert {f"zksc_tpu_torch.{m}" for m in (
-        "parallel.mesh", "parallel.multihost", "ops.ntt_sharded")} <= set(mods)
+        "parallel.mesh", "parallel.multihost", "ops.ntt_sharded",
+        "ops.msm_glue")} <= set(mods)
 
 
 def test_chip_smoke_fails_without_cuda():

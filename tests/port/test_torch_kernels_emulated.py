@@ -23,7 +23,12 @@ its sigma gather) are held to their plain versions and K7a to hashlib;
 K0 (to_mont and the quotient over a ragged last block), K4 (every
 transform's stage groups split with a small tile at n = 2^8-2^10, so a
 transform takes two or three launches) and K5 (empty and long rows, a
-ragged last block) to theirs. This checks the kernels' indexing, layouts,
+ragged last block) to theirs; the bucket MSM's glue K6a-d (the keys'
+histogram in shared memory and in global memory, its atomics under the
+shim's mutex; the sorted gather in both layouts; the top scan in one and
+in two launches, with runs of one and of several lanes; the bucket
+boundaries over two K1 levels and the top) to theirs, and a whole
+_window_sums through the emulated K6, K1 and K2 to the plain one. This checks the kernels' indexing, layouts,
 branches and the lane-pair protocol; the card's own compiler and timing are
 chip_smoke.py's."""
 import ctypes
@@ -45,7 +50,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from zksc_tpu_torch.fields.limb import Fr  # noqa: E402
 from zksc_tpu_torch.ops import ec, ec_kernels, msm, msm_kernels  # noqa: E402
-from zksc_tpu_torch.ops import h_kernels, stark_kernels  # noqa: E402
+from zksc_tpu_torch.ops import h_kernels, msm_glue, stark_kernels  # noqa: E402
 from zksc_tpu_torch.ops.ntt import NTTContext  # noqa: E402
 from zksc_tpu_torch.stark import aes_air, blake2s, chacha_air, circle  # noqa: E402
 from zksc_tpu_torch.stark import aes_prover  # noqa: E402
@@ -238,7 +243,7 @@ def _translate(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """(ec, msm, stark, h libraries) built from csrc/ with g++."""
+    """(ec, msm, stark, h, msm_glue libraries) built from csrc/ with g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the emulated kernels cannot be built")
@@ -247,7 +252,8 @@ def emulated(tmp_path_factory):
     for name in os.listdir(CSRC):
         (d / name).write_text(_translate(open(os.path.join(CSRC, name)).read()))
     libs = []
-    for name in ("ec_kernels", "msm_kernels", "stark_kernels", "h_kernels"):
+    for name in ("ec_kernels", "msm_kernels", "stark_kernels", "h_kernels",
+                 "msm_glue"):
         so = d / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
                         str(d / f"{name}.cu"), "-o", str(so)], check=True,
@@ -257,6 +263,7 @@ def emulated(tmp_path_factory):
     msm_kernels._declare(libs[1])
     stark_kernels._declare(libs[2])
     h_kernels._declare(libs[3])
+    msm_glue._declare(libs[4])
     return libs
 
 
@@ -999,3 +1006,160 @@ def test_sharded_h_emulated(h_card, monkeypatch, D):
     h_card.reset_launch_counts()
     assert torch.equal(h_sharded(z[:, 0]), want)
     assert all(v > 0 for v in h_card.LAUNCHES.values()), h_card.LAUNCHES
+
+
+# ---------------------------------------------------------------- K6
+
+@pytest.fixture
+def glue_emu(kernels, emulated, monkeypatch):
+    """msm_glue's launch paths (and ec_kernels', for K1 / K2), pointed at
+    the emulated libraries."""
+    monkeypatch.setattr(msm_glue, "_lib", lambda: emulated[4])
+    monkeypatch.setattr(msm_glue, "_stream", lambda t: None)
+    monkeypatch.setattr(msm_glue, "_require_cuda", lambda t, what: None)
+    return msm_glue
+
+
+def _glue_scalars(rng, k: int, n: int, n_bits: int):
+    """[16, k, n] plain limbs: runs of 0 / 1 (a witness's bits) and
+    full-width values below 2^n_bits."""
+    rows = []
+    for _ in range(k):
+        vals = [int(v) for v in rng.integers(0, 2, n)]
+        for i in rng.choice(n, n // 3, replace=False):
+            vals[i] = int.from_bytes(rng.bytes(32), "little") % (1 << n_bits)
+        run = min(40, n // 4)
+        vals[n // 2:n // 2 + run] = [1] * run
+        rows.append(Fr.to_device(vals, mont=False))
+    return torch.stack(rows, dim=1)
+
+
+@pytest.mark.parametrize("c, n", [(4, 300), (13, 4096 + 37), (14, 300)])
+def test_k6a_emulated(glue_emu, c, n):
+    """K6a's keys and histogram equal keys_plain's over 254-bit scalars of
+    two proofs: c = 13 through the shared-memory histogram over two blocks
+    of lanes (the last ragged), c = 4 (64 windows) and c = 14 (global
+    atomics); and on a strided view of the limbs, as a prover's private
+    slice of the witness."""
+    rng = np.random.default_rng(60 + c)
+    W = -(-254 // c)
+    sp = _glue_scalars(rng, 2, n + 9, 254)
+    for s in (sp[:, :, :n].contiguous(), sp[:, :, 9:]):
+        got = glue_emu._launch_keys(s, c, W)
+        want = msm_glue.keys_plain(s, c, W)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(want[1].sum()) == 2 * W * n
+
+
+def _glue_lanes(points, g2, T, seed):
+    """T lanes of crafted pairs (chip_smoke.craft: identity, P = Q, P = -Q,
+    affine and Jacobian mixed) interleaved, so pair members are adjacent
+    lanes."""
+    fops = _fops(g2)
+    A, B = _pair(points, g2, 448, seed)
+    idx = torch.arange(T) % 896
+    src = lambda i: torch.where(i % 2 == 0, i // 2, 448 + i // 2)
+    both = msm_glue._cat(fops, [A, B])
+    return msm_glue._take(fops, both, src(idx)), fops
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k6b_emulated(glue_emu, points, g2):
+    """K6b equals sorted_gather_plain over a permutation of 3 segments of
+    64 points, in K1's step-major layout (C0 = 12) and in position order."""
+    fops = _fops(g2)
+    P, _ = _glue_lanes(points, g2, 64, seed=61)
+    sidx = torch.from_numpy(np.random.default_rng(62).permutation(192))
+    for C0 in (12, None):
+        _equal(glue_emu._launch_sorted_gather(fops, P, sidx, 64, C0),
+               msm_glue.sorted_gather_plain(fops, P, sidx, 64, C0))
+
+
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k6c_emulated(glue_emu, points, monkeypatch, g2, inclusive):
+    """K6c equals scan_top_plain on crafted adjacent pairs: one tile of 5
+    lanes and three tiles of 300 lanes (two launches, a ragged last tile),
+    then runs of 3 lanes (scan_plan forced; the plain version follows the
+    same plan) over one tile and over several."""
+    fops = _fops(g2)
+    P_ = msm_glue.SCAN_THREADS // (2 if g2 else 1)
+    for T in (5, 300):
+        X, _ = _glue_lanes(points, g2, T, seed=63 + T)
+        _equal(glue_emu._launch_scan_top(fops, X, inclusive),
+               msm_glue.scan_top_plain(fops, X, inclusive))
+    monkeypatch.setattr(msm_glue, "scan_plan", lambda T, g: (
+        P_, 3, -(-(-(-T // 3)) // P_)))
+    for T in (100, 3 * P_ + 7, 7 * P_ + 2):
+        X, _ = _glue_lanes(points, g2, T, seed=64 + T)
+        _equal(glue_emu._launch_scan_top(fops, X, inclusive),
+               msm_glue.scan_top_plain(fops, X, inclusive))
+
+
+def _window_sums_inputs(points, g2, seed):
+    """32 points (an identity lane, a duplicated point) and 40-bit scalars
+    of two proofs."""
+    g1a, _, g2h = points
+    P = chip_smoke.g2_lanes(g2h, 0, 32) if g2 else chip_smoke.g1_lanes(g1a, 0, 32)
+    P = ec.JacPoint(*(a.clone() for a in P))
+    for half in ((0, 32) if g2 else (0,)):
+        for a in P:
+            a[:, half + 5] = a[:, half + 4]
+        P.z[:, half + 9] = 0
+    sp = _glue_scalars(np.random.default_rng(seed), 2, 32, 40)
+    return P, sp
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k6d_emulated(glue_emu, points, monkeypatch, g2):
+    """K6d equals bucket_boundaries_plain on the levels of a 40-bit MSM of
+    two proofs over 32 points at c = 5 (16 segments, N = 512) with _HS_MAX
+    lowered to 1: level 0, an exclusive K1 level and the top."""
+    fops = _fops(g2)
+    P, sp = _window_sums_inputs(points, g2, seed=65 + g2)
+    seen = []
+    orig = msm_glue.bucket_boundaries
+
+    def rec(*args):
+        seen.append(args)
+        return orig(*args)
+    monkeypatch.setattr(msm, "_HS_MAX", 1)
+    monkeypatch.setattr(msm_glue, "bucket_boundaries", rec)
+    msm._window_sums(fops, P, sp, 5, 8)
+    args = seen[0]
+    assert len(args[1]) == 3 and args[2].shape == (16, 32)
+    _equal(glue_emu._launch_bucket_boundaries(*args),
+           msm_glue.bucket_boundaries_plain(*args))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_window_sums_emulated(glue_emu, points, monkeypatch, g2):
+    """A whole _window_sums (c = 5, _HS_MAX lowered to 1) with every
+    kernel wrapper taking its emulated kernel: K6a, K6b, K1 twice, K6c,
+    K6d and the halving reduce's K2, equal to the plain run limb for
+    limb."""
+    fops = _fops(g2)
+    P, sp = _window_sums_inputs(points, g2, seed=67 + g2)
+    monkeypatch.setattr(msm, "_HS_MAX", 1)
+    want = msm._window_sums(fops, P, sp, 5, 8)
+    for name in ("keys", "sorted_gather", "scan_top", "bucket_boundaries"):
+        monkeypatch.setattr(msm_glue, name, getattr(msm_glue, "_launch_" + name))
+    monkeypatch.setattr(ec_kernels, "chunk_scan", ec_kernels._launch_chunk_scan)
+    monkeypatch.setattr(ec_kernels, "jac_add_n", ec_kernels._launch_jac_add_n)
+    glue_emu.reset_launch_counts()
+    _equal(msm._window_sums(fops, P, sp, 5, 8), want)
+    assert glue_emu.LAUNCHES == {"msm_keys": 1, "sorted_gather": 2,
+                                 "scan_top": 1, "bucket_boundaries": 2}
+
+
+@pytest.mark.parametrize("name, constant", [("SCAN_STEPS", "kScanSteps"),
+                                            ("SCAN_THREADS", "kGlueThreads"),
+                                            ("MAX_LEVELS", "kMaxLevels")])
+def test_k6_constants_match_source(name, constant):
+    """msm_glue's copies of K6's constants are the kernels' own, and the
+    step-major width is K1's chunk width in ops/msm.py."""
+    src = open(os.path.join(CSRC, "msm_glue.cu")).read()
+    m = re.search(rf"constexpr int {constant} = (\d+);", src)
+    assert m and int(m.group(1)) == getattr(msm_glue, name)
+    assert msm_glue.SCAN_STEPS == msm._SCAN_S

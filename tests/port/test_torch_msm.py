@@ -146,7 +146,7 @@ def test_window_sums_in_place(tables, group, monkeypatch):
     rows = [_scalars(n_bits, 21), _scalars(n_bits, 22)]
     sp = torch.stack([Fr.to_device(r, mont=False) for r in rows], dim=1)
     digits = msm.scalars_to_digits(sp, c, W).permute(1, 0, 2)     # [k, W, n]
-    sums = msm._window_sums(fops, tp, digits, c, k, N_PTS)
+    sums = msm._window_sums(fops, tp, sp, c, W)
     conv = tec.g2_jac_to_host_affine if g2 else tec.g1_jac_to_host_affine
     got = conv(fops.F, sums, host.P)
     add, mul = (host.g2_add, host.g2_mul) if g2 else (host.g1_add, host.g1_mul)

@@ -13,6 +13,9 @@ and waits for all of them; ``load(name)`` builds on first use.
          aes_composition)
     h    csrc/h_kernels.cu   -> build/libzksc_h.so    (the Groth16 H pass
          over Fr: K0 fr_elementwise, K4 ntt_group, K5 sparse_matvec)
+    msm_glue csrc/msm_glue.cu -> build/libzksc_msm_glue.so (the bucket
+         MSM's glue, K6: K6a msm_keys, K6b sorted_gather, K6c scan_top,
+         K6d segment_prefix and bucket)
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ LIBS = {
     "msm": ("msm_kernels.cu", ("bn254.cuh",), "libzksc_msm.so"),
     "stark": ("stark_kernels.cu", ("m31.cuh",), "libzksc_stark.so"),
     "h": ("h_kernels.cu", ("bn254.cuh",), "libzksc_h.so"),
+    "msm_glue": ("msm_glue.cu", ("bn254.cuh",), "libzksc_msm_glue.so"),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -9,14 +9,19 @@ Sorting a window's points by digit DESCENDING makes every T_j a prefix of
 the sorted sequence, read off an inclusive prefix sum V at the bucket
 boundaries. So per window:
 
-  1. sort point indices by digit (one stable global sort, windows and
-     proofs concatenated with segment-prefixed keys)
-  2. hierarchical prefix scan of EC adds over the sorted points: chunk-local
-     scans of _SCAN_S steps (K1, ec_kernels.chunk_scan) per level, each
-     level held step-major so that K1 reads it coalesced and nothing is
-     transposed, then a small Hillis-Steele top
-  3. gather V at the 2^c bucket boundaries, add the upper levels' offsets,
-     subtract the segment prefix, mask empty buckets
+  1. keys and their histogram from the scalar limbs (K6a,
+     msm_glue.keys), one stable global sort of the keys (torch.sort, as
+     the reference's lax.sort; windows and proofs concatenated with
+     segment-prefixed keys), the cumulative counts (torch.cumsum)
+  2. hierarchical prefix scan of EC adds over the sorted points: the
+     sorted gather writes level 0 (K6b, msm_glue.sorted_gather), then
+     chunk-local scans of _SCAN_S steps (K1, ec_kernels.chunk_scan) per
+     level, each level held step-major so that K1 reads it coalesced and
+     nothing is transposed, then the small top level (K6c,
+     msm_glue.scan_top)
+  3. the bucket boundaries (K6d, msm_glue.bucket_boundaries): V at the
+     2^c bucket boundaries plus the upper levels' offsets, minus the
+     segment prefix, empty buckets masked
   4. shrinking halving-tree reduce over the bucket axis -> S_w (K2 reads
      both halves of the bucket array in place)
 
@@ -30,11 +35,15 @@ structurally there (every window's segment holds the same point multiset,
 and 0/1 witnesses make whole digit runs identical); an incomplete formula
 silently zeroes them. Only the boundary corrections keep incomplete adds.
 
-Every Jacobian add here goes through ops/ec_kernels (K1 for the chunk
-scans; K2 for the Hillis-Steele top, the boundary and prefix corrections and
-the halving reduce): on a CUDA tensor that is the hand-written kernel, on a
-CPU tensor its plain PyTorch version. Unlike the JAX package there is no
-tile-multiple condition: every call takes the kernel.
+On a CUDA tensor a bucket MSM runs the hand-written kernels K6a, K6b, K1,
+K6c and K6d, K2 only for the halving reduce, and of PyTorch only the sort
+and the cumulative counts; nothing in it waits for the host, so the MSMs
+of a proof queue back to back. On a CPU tensor each kernel's wrapper
+takes its plain PyTorch version. K6c adds in its own order (runs and
+tiles, msm_glue.scan_plan), not the reference's Hillis-Steele order: the
+window sums are the same points, in other Jacobian representatives. Unlike
+the JAX package there is no tile-multiple condition: every call takes the
+kernel.
 
 With a mesh (parallel/mesh.py), msm_pippenger_device splits the points
 over the shards and each shard runs the whole pipeline on its own device
@@ -46,31 +55,15 @@ import time
 
 import torch
 
-from ..fields.limb import Fp, Fr, W as LIMB_W
-from . import ec, ec_kernels
+from ..fields.limb import Fp, Fr
+from . import ec, ec_kernels, msm_glue
 from .ec import JacPoint
+from .msm_glue import scalars_to_digits
 
 
 def _jp(fops, fn, P: JacPoint) -> JacPoint:
     return JacPoint(fops.lane_map(fn, P.x), fops.lane_map(fn, P.y),
                     fops.lane_map(fn, P.z))
-
-
-def scalars_to_digits(scalars_plain, c: int, n_windows: int):
-    """Non-Montgomery 16-bit limbs [L, *batch] -> digits int64
-    [n_windows, *batch], digit w = scalar bits [w*c, (w+1)*c)."""
-    assert c <= LIMB_W, "window must fit in two 16-bit limbs"
-    s = scalars_plain.to(torch.int64)
-    L = s.shape[0]
-    outs = []
-    for w in range(n_windows):
-        lo_bit = w * c
-        lo, off = lo_bit // LIMB_W, lo_bit % LIMB_W
-        d = s[lo] >> off
-        if off + c > LIMB_W and lo + 1 < L:
-            d = d | (s[lo + 1] << (LIMB_W - off))
-        outs.append(d & ((1 << c) - 1))
-    return torch.stack(outs)
 
 
 def _local_scan(fops, pts: JacPoint, S: int, inclusive: bool,
@@ -80,13 +73,6 @@ def _local_scan(fops, pts: JacPoint, S: int, inclusive: bool,
     written in place. Returns (scanned, chunk totals); the totals in chunk
     order, or in the step-major order of a next level of carry_steps."""
     return ec_kernels.chunk_scan(fops, pts, S, inclusive, carry_steps)
-
-
-def _step_major(idx, S: int, chunks):
-    """Sorted position p = chunk * S + step -> its lane in a K1 level's
-    step-major layout (step * chunks + chunk); a Hillis-Steele level
-    (chunks None) holds positions in order."""
-    return idx if chunks is None else (idx % S) * chunks + idx // S
 
 
 def _lane_range(fops, P: JacPoint, lo: int, hi: int) -> JacPoint:
@@ -102,114 +88,54 @@ def _add_wide(fops, P: JacPoint, Q: JacPoint, complete: bool) -> JacPoint:
     return ec_kernels.jac_add_n(fops, P, Q, complete=complete)
 
 
-def _hs_scan(fops, pts: JacPoint, exclusive: bool) -> JacPoint:
-    """Global prefix scan via Hillis-Steele (log2(N) full-width adds); used
-    for the small top level of the hierarchy (and tiny inputs outright)."""
-    N = fops.lane_width(pts.x)
-    dev = pts.x.device
-    iota = torch.arange(N, device=dev)
-    ident = ec.jac_identity_batch(fops, (N,), device=dev)
-
-    def shift(P, d):
-        rolled = _jp(fops, lambda a: torch.roll(a, d, dims=-1), P)
-        cond = iota < d
-        return JacPoint(fops.select(cond, ident.x, rolled.x),
-                        fops.select(cond, ident.y, rolled.y),
-                        fops.select(cond, ident.z, rolled.z))
-
-    cur = shift(pts, 1) if exclusive else pts
-    d = 1
-    while d < N:
-        cur = _add_wide(fops, cur, shift(cur, d), complete=True)
-        d *= 2
-    return cur
+_SCAN_S = msm_glue.SCAN_STEPS   # chunk width per hierarchy level
+_HS_MAX = 8192                  # the top level (K6c) at/below this width
 
 
-_SCAN_S = 16          # chunk width per hierarchy level
-_HS_MAX = 8192        # switch to Hillis-Steele at/below this width
-
-
-def _window_sums(fops, points: JacPoint, digits, c: int, k: int, n: int):
+def _window_sums(fops, points: JacPoint, scalars, c: int, W: int):
     """Per-(proof, window) bucket-method sums.
 
-    points: JacPoint [L, n] (shared table). digits: int [k, W, n].
+    points: JacPoint [L, n] (shared table). scalars: plain limbs [L, k, n].
     Returns JacPoint [L, k*W]: lane j*W + w = S_w for proof j."""
-    dev = points.x.device
-    W = digits.shape[1]
+    k, n = int(scalars.shape[1]), int(scalars.shape[2])
     two_c = 1 << c
     segs = k * W
     N = segs * n
 
     # ---- keys: segment-major, digit DESCENDING within segment ----
-    f = (two_c - 1) - digits.to(torch.int64)                      # flipped
-    seg_ids = torch.arange(segs, dtype=torch.int64, device=dev).reshape(k, W, 1)
-    key = (seg_ids * two_c + f).reshape(-1)
-
-    # histogram -> inclusive counts over flipped digit: cnt_ge(j) = cum[., 2^c-1-j]
-    counts = torch.bincount(key, minlength=segs * two_c)
-    cum = torch.cumsum(counts.reshape(segs, two_c), dim=-1)      # [segs, 2^c]
-
+    key, counts = msm_glue.keys(scalars, c, W)
+    # inclusive counts over flipped digit: cnt_ge(j) = cum[., 2^c-1-j]
+    cum = torch.cumsum(counts.view(segs, two_c), dim=-1, dtype=torch.int32)
     # stable: ties keep index order within a segment, as lax.sort does
     _, sidx = torch.sort(key, stable=True)
-    sidx = sidx % n                                               # point index
 
     # ---- hierarchical prefix scan ----
     # K1 levels hold step-major lanes: the sorted gather writes level 0 in
     # that order and K1 writes each level's chunk totals where the next
     # level reads them, so no level is transposed. A level continues while
-    # its chunk count is a multiple of _SCAN_S above _HS_MAX.
+    # its chunk count is a multiple of _SCAN_S above _HS_MAX. levels:
+    # (scan, position stride, step-major chunks or None), level 0 first.
     S = _SCAN_S
     deeper = lambda chunks: S if chunks > _HS_MAX and chunks % S == 0 else 1
-    levels = []                                         # (scan, stride, chunks)
     if N <= _HS_MAX or N % S:
-        C0 = None
-        s0 = _hs_scan(fops, _jp(fops, lambda a: a[:, sidx], points),
-                      exclusive=False)
+        s0 = msm_glue.scan_top(
+            fops, msm_glue.sorted_gather(fops, points, sidx, n, None), True)
+        levels = [(s0, 1, None)]
     else:
         C0 = N // S
-        order = sidx.reshape(C0, S).T.reshape(-1)
-        s0, tot = _local_scan(fops, _jp(fops, lambda a: a[:, order], points),
-                              S, True, deeper(C0))
+        s0, tot = _local_scan(fops, msm_glue.sorted_gather(
+            fops, points, sidx, n, C0), S, True, deeper(C0))
+        levels = [(s0, 1, C0)]
         stride, C = S, C0
         while deeper(C) > 1:
             C //= S
             e, tot = _local_scan(fops, tot, S, False, deeper(C))
             levels.append((e, stride, C))
             stride *= S
-        levels.append((_hs_scan(fops, tot, exclusive=True), stride, None))
-
-    def prefix(at):
-        """Inclusive prefix sums at sorted positions `at`: s0 plus each
-        upper level's exclusive offset (incomplete adds)."""
-        acc = _jp(fops, lambda a: a[:, _step_major(at, S, C0)], s0)
-        for e, st, ch in levels:
-            ep = torch.clamp(at // st, 0, fops.lane_width(e.x) - 1)
-            acc = _add_wide(fops, acc, _jp(
-                fops, lambda a: a[:, _step_major(ep, S, ch)], e), complete=False)
-        return acc
+        levels.append((msm_glue.scan_top(fops, tot, False), stride, None))
 
     # ---- bucket boundaries (q-major lanes: lane = q*segs + s) ----
-    cnt = cum.T                                                   # [2^c, segs]
-    base = (torch.arange(segs, dtype=torch.int64, device=dev) * n)[None, :]
-    V = prefix(torch.clamp(base + cnt - 1, 0, N - 1).reshape(-1))
-
-    # subtract the segment prefix (all points of earlier segments): for
-    # segment s > 0 that's V_global at position s*n - 1; identity for s == 0
-    Pre = prefix(torch.clamp(torch.arange(segs, dtype=torch.int64, device=dev)
-                             * n - 1, 0, N - 1))
-    first_seg = torch.arange(segs, device=dev) == 0
-    Pre = JacPoint(Pre.x, fops.neg(Pre.y),
-                   fops.select(first_seg, fops.zeros_like(Pre.z), Pre.z))
-    PreT = _jp(fops, lambda a: a.repeat(1, two_c), Pre)
-    T = _add_wide(fops, V, PreT, complete=False)
-
-    # mask: empty prefix (cnt == 0) and the digit-0 bucket (q == 2^c - 1)
-    q_flat = torch.arange(two_c, device=dev).repeat_interleave(segs)
-    valid = (cnt.reshape(-1) > 0) & (q_flat != two_c - 1)
-    ident = ec.jac_identity_batch(fops, (two_c * segs,), device=dev)
-    T = JacPoint(fops.select(valid, T.x, ident.x),
-                 fops.select(valid, T.y, ident.y),
-                 fops.select(valid, T.z, ident.z))
+    T = msm_glue.bucket_boundaries(fops, levels, cum, c, n)
 
     # ---- shrinking halving reduce over the bucket axis ----
     half = two_c
@@ -307,24 +233,22 @@ def batch_scalar_mul_fixed_base(scalars: list, base, g2: bool = False,
     return out
 
 
-def _window_sums_sharded(fops, points: JacPoint, digits, c: int, k: int,
-                         n: int, mesh) -> list:
+def _window_sums_sharded(fops, points: JacPoint, scalars, c: int, W: int,
+                         mesh) -> list:
     """Shard the POINT axis over the mesh: each shard runs the whole bucket
-    pipeline (K1 and K2 on its own device) on its n / D points, since the
-    bucket method is additive over a partition of the points. Returns the
-    per-shard window sums, one JacPoint [L, k*W] per shard; the D partials
-    are added on the host (msm_to_host_affine). G2 blocks keep both halves
-    of their points (mesh.shard_jac unfolds (c0 | c1)), so the shards split
-    points, not components."""
+    pipeline (K6, K1 and K2 on its own device) on its n / D points and
+    their scalars, since the bucket method is additive over a partition of
+    the points. Returns the per-shard window sums, one JacPoint [L, k*W]
+    per shard; the D partials are added on the host (msm_to_host_affine).
+    G2 blocks keep both halves of their points (mesh.shard_jac unfolds (c0
+    | c1)), so the shards split points, not components."""
     from ..parallel.mesh import shard_bits, shard_jac
     if not mesh.all_local:
         raise ValueError("the sharded MSM needs every shard in this process "
                          "(across processes, split the batch: host_slice)")
-    D = mesh.size
     pts = shard_jac(points, mesh, g2=isinstance(fops, ec.Fp2Ops))
-    dgs = shard_bits(digits, mesh)
-    return [_window_sums(fops, p, dg, c, k, n // D)
-            for p, dg in zip(pts, dgs)]
+    sps = shard_bits(scalars, mesh)
+    return [_window_sums(fops, p, sp, c, W) for p, sp in zip(pts, sps)]
 
 
 class MsmPending:
@@ -341,21 +265,21 @@ class MsmPending:
 def msm_pippenger_device(fops, points: JacPoint, scalars_plain, n_bits: int,
                          c: int | None = None, mesh=None) -> MsmPending:
     """Device half of the bucket MSM: returns an MsmPending whose window
-    sums stay on the device, WITHOUT synchronizing to the host, so several
-    MSMs queue back-to-back. With a mesh of D > 1 shards that tiles the n
-    points, each shard sums its n / D points."""
+    sums stay on the device. On a CUDA tensor it makes no synchronising
+    call (the keys' histogram is K6a's, not bincount's), so the MSMs of a
+    proof queue back-to-back and only msm_to_host_affine waits. With a mesh
+    of D > 1 shards that tiles the n points, each shard sums its n / D
+    points."""
     single = scalars_plain.dim() == 2
     sp = scalars_plain[:, None, :] if single else scalars_plain
     k, n = int(sp.shape[1]), int(sp.shape[2])
     if c is None:
         c = default_window_bits(n_bits, n)
     Wn = -(-n_bits // c)
-    digits = scalars_to_digits(sp, c, Wn)            # [W, k, n]
-    digits = digits.permute(1, 0, 2)                 # [k, W, n]
     if mesh is not None and mesh.size > 1 and n % mesh.size == 0:
-        sums = _window_sums_sharded(fops, points, digits, c, k, n, mesh)
+        sums = _window_sums_sharded(fops, points, sp, c, Wn, mesh)
     else:
-        sums = [_window_sums(fops, points, digits, c, k, n)]
+        sums = [_window_sums(fops, points, sp, c, Wn)]
     return MsmPending(sums, c, Wn, k, len(sums))
 
 
